@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Where a serving step's time goes in the PyTorch/H100 port.
+
+    python3 scripts/port_profile.py [--trace-dir DIR]
+
+Builds the port's ContinuousBatchingEngine on llama3-8b (random bf16
+weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
+4096, the CUDA kernels) and profiles two windows with torch.profiler:
+
+  prefill - one 3000-token prompt: its six 512-token chunks and the
+            decode step that emits its token;
+  decode  - 16 decode steps at batch 8 (8 live slots, 64-token prompts).
+
+For each window it prints one JSON line: host wall time per step (host
+clock around work that ends in a device synchronize), device busy time
+(the union of the kernels' intervals in the trace), the device's idle
+share, the two attention kernels' share, and the kernels that took the
+most device time.  With --trace-dir it also writes each window's Chrome
+trace there.  Needs one NVIDIA card.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+_ATTENTION = ('paged_decode_kernel', 'ragged_prefill_')
+
+
+def _kernel_events(prof):
+    out = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out.append((e.name, e.time_range.start, e.time_range.end))
+    return out
+
+
+def _summary(name, prof, wall_s, steps):
+    events = _kernel_events(prof)
+    busy = 0.0
+    cur_start = cur_end = None
+    for _, s, e in sorted(events, key=lambda x: x[1]):
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    by_name = collections.Counter()
+    for n, s, e in events:
+        by_name[n] += e - s
+    attn = sum(v for k, v in by_name.items()
+               if any(a in k for a in _ATTENTION))
+    wall_us = wall_s * 1e6
+    return {
+        'window': name, 'steps': steps,
+        'wall_ms_per_step': wall_us / steps / 1e3,
+        'device_busy_ms_per_step': busy / steps / 1e3,
+        'device_idle_share': (1.0 - busy / wall_us) if events else None,
+        'attention_kernel_share_of_busy': (attn / busy) if busy else None,
+        'kernel_launches_per_step': len(events) / steps,
+        'top_kernels_ms_per_step': [
+            [k[:90], v / steps / 1e3] for k, v in by_name.most_common(8)],
+    }
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--trace-dir', default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('port_profile: needs an NVIDIA card')
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = engine_lib.ContinuousBatchingEngine(
+        model='llama3-8b', n_slots=8, max_seq_len=4096, prefill_chunk=512,
+        page_size=16, seed=0)
+    eng.generate([[1, 2, 3]], engine_lib.SamplingConfig(max_new_tokens=2))
+    rng = np.random.RandomState(0)
+    vocab = eng.config.vocab_size
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def window(name, steps_fn):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            steps = steps_fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if args.trace_dir:
+            os.makedirs(args.trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                args.trace_dir, f'port_profile_{name}.json'))
+        print(json.dumps(_summary(name, prof, wall, steps)), flush=True)
+
+    def prefill():
+        eng.submit(rng.randint(0, vocab, 3000).tolist(),
+                   engine_lib.SamplingConfig(max_new_tokens=1))
+        steps = 0
+        while eng.step():
+            steps += 1
+        return steps
+
+    window('prefill', prefill)
+    for _ in range(8):
+        eng.submit(rng.randint(0, vocab, 64).tolist(),
+                   engine_lib.SamplingConfig(max_new_tokens=40))
+    eng.step()      # admits and prefills all 8, first decode step
+
+    def decode():
+        for _ in range(16):
+            eng.step()
+        return 16
+
+    window('decode', decode)
+    eng.run_until_idle()
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(json.dumps({'card': smi.stdout.strip().splitlines()[0]}),
+          flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

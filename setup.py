@@ -5,7 +5,10 @@ setup(
     name='skypilot-tpu',
     version='0.1.0',
     description='TPU-native cloud orchestration + JAX workload framework',
-    packages=find_packages(include=['skypilot_tpu', 'skypilot_tpu.*']),
+    packages=find_packages(include=['skypilot_tpu', 'skypilot_tpu.*',
+                                    'skypilot_tpu_torch',
+                                    'skypilot_tpu_torch.*']),
+    package_data={'skypilot_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
     install_requires=[
         'click', 'filelock', 'jsonschema', 'networkx', 'pandas', 'psutil',

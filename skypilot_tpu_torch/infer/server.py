@@ -1,0 +1,296 @@
+"""HTTP serving front-end for the port's inference engine.
+
+Port of the /generate surface of skypilot_tpu/infer/server.py:
+
+  GET  /health    -> 200 {"status": "ok"} once the engine is warm,
+                     503 {"status": "unhealthy", ...} after a fatal
+                     decode-loop failure
+  POST /generate  -> {"tokens": [[...], ...]}
+       body: {"prompt_ids": [[...], ...], "max_new_tokens": N,
+              "temperature": T, "top_k": K, "top_p": P, "eos_id": E,
+              "seed": S, "deadline_s": D}
+
+A dedicated decode-loop thread drives ContinuousBatchingEngine.step();
+handler threads only submit() and wait().  In this slice any exception
+out of step() is fatal: the replica goes unhealthy and every waiter
+fails fast (the reference's transient-failure recovery and restart
+budget come later).  Serving random weights is refused unless
+`allow_random_weights` is set.
+
+Run: python -m skypilot_tpu_torch.infer.server --model llama3-8b \
+         --page-size 16 --prefill-chunk 512 --allow-random-weights
+"""
+from __future__ import annotations
+
+import argparse
+import http.server
+import json
+import logging
+import threading
+import time
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+from skypilot_tpu_torch import DeviceLike
+from skypilot_tpu_torch.infer import engine as engine_lib
+
+logger = logging.getLogger(__name__)
+
+_GET_ROUTES = ('/health',)
+_POST_ROUTES = ('/generate',)
+
+
+class _Shed(Exception):
+    """Admission-time load shed: a 503 instead of queueing more work."""
+
+
+class _HTTPServer(http.server.ThreadingHTTPServer):
+    daemon_threads = True
+    # Bursts of concurrent clients must queue in the kernel, not be
+    # refused at the default backlog of 5.
+    request_queue_size = 128
+
+
+class InferenceServer:
+
+    def __init__(self, model: str = 'llama-tiny', port: int = 8000,
+                 host: str = '0.0.0.0', max_batch_size: int = 4,
+                 max_seq_len: Optional[int] = None,
+                 model_overrides: Optional[Dict[str, Any]] = None,
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 param_dtype: Any = torch.bfloat16,
+                 prefill_chunk: int = 0,
+                 kv_read_bucket: int = 512,
+                 page_size: int = 16,
+                 max_pages: int = 0,
+                 allow_random_weights: bool = False,
+                 decode_kernel: str = 'auto',
+                 prefill_kernel: str = 'auto',
+                 default_deadline_s: float = 600.0,
+                 max_queue_depth: Optional[int] = None,
+                 device: DeviceLike = 'cuda') -> None:
+        if params is None and not allow_random_weights:
+            raise ValueError(
+                'refusing to serve randomly initialized weights: pass '
+                'params (or allow_random_weights=True for tests/dev).')
+        self.engine = engine_lib.ContinuousBatchingEngine(
+            model=model, params=params, n_slots=max_batch_size,
+            max_seq_len=max_seq_len, model_overrides=model_overrides,
+            param_dtype=param_dtype, prefill_chunk=prefill_chunk,
+            kv_read_bucket=kv_read_bucket, page_size=page_size,
+            max_pages=max_pages, decode_kernel=decode_kernel,
+            prefill_kernel=prefill_kernel, device=device)
+        self.model_name = model
+        self.default_deadline_s = float(default_deadline_s)
+        self.max_queue_depth = (max_queue_depth if max_queue_depth
+                                is not None else 8 * max_batch_size)
+        # Warm the kernels and allocator before /health reports ready.
+        self.engine.generate([[1, 2, 3]],
+                             engine_lib.SamplingConfig(max_new_tokens=2))
+        self._port = port
+        self._host = host
+        self._server: Optional[http.server.ThreadingHTTPServer] = None
+        self._running = False
+        self._decode_thread: Optional[threading.Thread] = None
+        self._work = threading.Event()
+        self._fatal: Optional[BaseException] = None
+
+    @property
+    def port(self) -> int:
+        assert self._server is not None
+        return self._server.server_address[1]
+
+    def _decode_loop(self) -> None:
+        """Drive engine.step() while there is work; sleep on the work
+        event when idle.  A step failure is fatal for the replica."""
+        while self._running:
+            try:
+                busy = self.engine.step()
+            except BaseException as e:  # noqa: BLE001 — replica boundary
+                logger.exception('decode step failed; marking unhealthy')
+                self._fatal = e
+                self._running = False
+                self.engine.abort(e)
+                return
+            if not busy:
+                self._work.wait(0.05)
+                self._work.clear()
+
+    def _handle_generate(self, payload: dict) -> dict:
+        deadline_s = payload.get('deadline_s', self.default_deadline_s)
+        try:
+            deadline_s = float(deadline_s)
+        except (TypeError, ValueError):
+            raise ValueError(f'deadline_s must be a number of seconds, '
+                             f'got {deadline_s!r}') from None
+        prompts = payload.get('prompt_ids')
+        if not isinstance(prompts, list) or not prompts or not all(
+                isinstance(p, list) for p in prompts):
+            raise ValueError('prompt_ids must be a non-empty list of '
+                             'token-id lists')
+        sampling = engine_lib.SamplingConfig(
+            temperature=float(payload.get('temperature', 0.0)),
+            top_k=int(payload.get('top_k', 0)),
+            top_p=float(payload.get('top_p', 1.0)),
+            eos_id=payload.get('eos_id'),
+            max_new_tokens=int(payload.get('max_new_tokens', 64)),
+            seed=(int(payload['seed'])
+                  if payload.get('seed') is not None else None))
+        depth = self.engine.queue_depth
+        if depth + len(prompts) > self.max_queue_depth:
+            raise _Shed(f'queue full ({depth} queued, limit '
+                        f'{self.max_queue_depth})')
+        rids = []
+        try:
+            # All-or-nothing: a rejected prompt must not strand its
+            # siblings decoding with no reader.
+            for p in prompts:
+                rids.append(self.engine.submit(p, sampling,
+                                               deadline_s=deadline_s))
+            self._work.set()
+            tokens = [self.engine.wait(r) for r in rids]
+        except BaseException:
+            for r in rids:
+                self.engine.cancel(r)
+            raise
+        return {'tokens': tokens}
+
+    def start(self) -> None:
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+
+            def log_message(self, format, *args):  # noqa: A002
+                logger.debug(f'{self.address_string()} {format % args}')
+
+            def _reply(self, code: int, body: dict,
+                       allow: Optional[str] = None) -> None:
+                data = json.dumps(body).encode()
+                self.send_response(code)
+                self.send_header('Content-Type', 'application/json')
+                self.send_header('Content-Length', str(len(data)))
+                if allow is not None:
+                    self.send_header('Allow', allow)
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):  # noqa: N802
+                route = self.path.split('?', 1)[0]
+                if route == '/health':
+                    if outer._fatal is not None:  # pylint: disable=protected-access
+                        self._reply(503, {
+                            'status': 'unhealthy',
+                            'error': repr(outer._fatal)})  # pylint: disable=protected-access
+                    else:
+                        self._reply(200, {'status': 'ok'})
+                elif route in _POST_ROUTES:
+                    self._reply(405, {'error': 'method not allowed'},
+                                allow='POST')
+                else:
+                    self._reply(404, {'error': 'not found'})
+
+            def do_POST(self):  # noqa: N802
+                route = self.path.split('?', 1)[0]
+                if route not in _POST_ROUTES:
+                    if route in _GET_ROUTES:
+                        self._reply(405, {'error': 'method not allowed'},
+                                    allow='GET')
+                    else:
+                        self._reply(404, {'error': 'not found'})
+                    return
+                try:
+                    length = int(self.headers.get('Content-Length', 0))
+                    payload = json.loads(self.rfile.read(length) or b'{}')
+                    self._reply(200, outer._handle_generate(payload))  # pylint: disable=protected-access
+                except _Shed as e:
+                    self._reply(503, {'error': str(e)})
+                except TimeoutError as e:
+                    self._reply(504, {'error': str(e)})
+                except ValueError as e:
+                    self._reply(400, {'error': str(e)})
+                except Exception as e:  # pylint: disable=broad-except
+                    logger.exception('generate failed')
+                    self._reply(500, {'error': str(e)})
+
+        self._server = _HTTPServer((self._host, self._port), Handler)
+        if self._decode_thread is None:
+            self._running = True
+            self._decode_thread = threading.Thread(
+                target=self._decode_loop, daemon=True,
+                name='skytpu-torch-decode-loop')
+            self._decode_thread.start()
+
+    def serve_forever(self) -> None:
+        """Serve until shutdown(); starts the server unless start() ran."""
+        if self._server is None:
+            self.start()
+        assert self._server is not None
+        logger.info(f'inference server on :{self.port}')
+        self._server.serve_forever(poll_interval=0.05)
+
+    def shutdown(self, join_timeout_s: float = 5.0) -> None:
+        """Stop the decode loop and the HTTP server (safe to call from
+        another thread than serve_forever's)."""
+        self._running = False
+        self._work.set()
+        if self._decode_thread is not None:
+            self._decode_thread.join(timeout=join_timeout_s)
+            self._decode_thread = None
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--model', default='llama-tiny')
+    parser.add_argument('--port', type=int, default=8000)
+    parser.add_argument('--host', default='0.0.0.0')
+    parser.add_argument('--max-batch-size', type=int, default=4)
+    parser.add_argument('--max-seq-len', type=int, default=None)
+    parser.add_argument('--prefill-chunk', type=int, default=0,
+                        help='Chunked prefill: this many prompt tokens per '
+                             'tick (0 = whole prompt at admission).')
+    parser.add_argument('--kv-read-bucket', type=int, default=512)
+    parser.add_argument('--page-size', type=int, default=16,
+                        help='Positions per KV page (power of two).')
+    parser.add_argument('--max-pages', type=int, default=0)
+    parser.add_argument('--decode-kernel', default='auto',
+                        choices=['auto', 'fused', 'xla'],
+                        help="'fused' = the CUDA paged-decode kernel, "
+                             "'xla' = its plain PyTorch version.")
+    parser.add_argument('--prefill-kernel', default='auto',
+                        choices=['auto', 'fused', 'xla'],
+                        help="'fused' = the CUDA ragged-prefill kernel, "
+                             "'xla' = its plain PyTorch version.")
+    parser.add_argument('--model-overrides', default=None,
+                        help='JSON dict of model-config overrides.')
+    parser.add_argument('--allow-random-weights', action='store_true',
+                        help='Serve randomly initialized weights '
+                             '(tests/dev; no checkpoint loader yet).')
+    parser.add_argument('--device', default='cuda')
+    args = parser.parse_args()
+    overrides = None
+    if args.model_overrides:
+        overrides = json.loads(args.model_overrides)
+        if not isinstance(overrides, dict):
+            parser.error('--model-overrides must be a JSON object')
+    logging.basicConfig(level=logging.INFO)
+    t0 = time.perf_counter()
+    server = InferenceServer(
+        model=args.model, port=args.port, host=args.host,
+        max_batch_size=args.max_batch_size, max_seq_len=args.max_seq_len,
+        model_overrides=overrides, prefill_chunk=args.prefill_chunk,
+        kv_read_bucket=args.kv_read_bucket, page_size=args.page_size,
+        max_pages=args.max_pages,
+        allow_random_weights=args.allow_random_weights,
+        decode_kernel=args.decode_kernel,
+        prefill_kernel=args.prefill_kernel, device=args.device)
+    logger.info(f'engine ready in {time.perf_counter() - t0:.1f}s')
+    server.serve_forever()
+
+
+if __name__ == '__main__':
+    main()

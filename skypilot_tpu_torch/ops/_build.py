@@ -1,0 +1,111 @@
+"""Build the CUDA kernels in `csrc/` with nvcc and load them with ctypes.
+
+Each source file becomes its own shared library with a plain C
+interface (no PyTorch headers, so one build takes seconds).  Libraries
+land in `skypilot_tpu_torch/_build/`, named by a digest of their
+source and flags, so an edited kernel is rebuilt and an unchanged one
+is reused.  `build()` starts one nvcc per missing library, all at
+once, and waits for them together.
+
+Nothing here runs at import: the kernels are built the first time a
+wrapper launches one on a CUDA tensor (or when a caller asks, as
+chip_smoke.py does to time the build).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Any, Dict, Iterable, Sequence, Tuple
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / 'csrc'
+BUILD_DIR = _PKG / '_build'
+SOURCES = ('paged_decode', 'ragged_prefill')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_lock = threading.Lock()
+_launchers: Dict[str, Any] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = '/usr/local/cuda/bin/nvcc'
+    if os.path.exists(default):
+        return default
+    raise RuntimeError('nvcc not found: the CUDA kernels are built on a '
+                       'machine with the CUDA toolkit')
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f'{name}.cu').read_bytes()
+    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
+    """Compile every library of `names` that is not built yet, one
+    nvcc per source, all started together.  Returns name -> (library
+    path, compiler log); the log holds ptxas's register and shared
+    memory report for a fresh build and is empty for a reused one."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, Tuple[Path, str]] = {}
+    procs = {}
+    for name in names:
+        path = _lib_path(name)
+        if path.exists():
+            out[name] = (path, '')
+            continue
+        tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+               str(CSRC / f'{name}.cu')]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'{name}.cu (nvcc exit {proc.returncode}):\n{log}')
+            continue
+        os.replace(tmp, path)
+        out[name] = (path, log)
+    if failed:
+        raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
+    return out
+
+
+def launcher(name: str, argtypes: Sequence[Any]) -> Any:
+    """The C launcher `<name>_launch` of `csrc/<name>.cu` (built and
+    loaded on first use), returning a cudaError_t as int."""
+    with _lock:
+        fn = _launchers.get(name)
+        if fn is None:
+            path, _ = build([name])[name]
+            fn = getattr(ctypes.CDLL(str(path)), f'{name}_launch')
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
+            _launchers[name] = fn
+        return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C launcher returned a nonzero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f'{what}: CUDA error {err} at launch')
+
+
+def dtype_code(dtype) -> int:
+    """The kernels' element-type code: 0 float32, 1 bfloat16, 2 float16."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+    if dtype not in codes:
+        raise ValueError(f'unsupported kernel dtype {dtype}')
+    return codes[dtype]

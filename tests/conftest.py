@@ -68,6 +68,10 @@ def pytest_configure(config):
         'slow: long integration tests excluded from the tier-1 fast '
         "gate (pytest -m 'not slow'); run them with -m slow or no "
         'marker filter.')
+    config.addinivalue_line(
+        'markers',
+        'cuda: needs an NVIDIA card (CUDA kernels of skypilot_tpu_torch); '
+        'skips where torch.cuda.is_available() is false.')
 
 
 @pytest.fixture(autouse=True)
