@@ -10,12 +10,15 @@ Phases, any failure exits non-zero:
                parallel) and print the build time and ptxas's report.
   3. kernels - at llama3-8b serving shapes (H 32, kvh 8, d 128, page 16,
                bf16) hold each kernel against its plain PyTorch version
-               on the same inputs, and time the kernel, the plain version
-               and one PyTorch library call for the same function (SDPA
-               on K/V gathered beforehand: a yardstick the port never
-               calls).  Decode: batch 8, contexts 100-4000 over a
-               shuffled page pool with a poisoned null page.  Prefill: a
-               512-token chunk at cursor base 0 and at base 1536.
+               run at f32 on the same values, within the kernel's
+               rounding bound (`check_kernel`), and time the kernel, the
+               plain version (bf16) and one PyTorch library call for the
+               same function (SDPA on K/V gathered beforehand: a
+               yardstick the port never calls).  Decode: batch 8,
+               contexts 100-4000 over a shuffled page pool with a
+               poisoned null page.  Prefill: the 512-token chunks of a
+               3000-token prompt at cursor base 0, 1536 and 2560 (the
+               last chunk, where kv_mask cuts into the chunk).
   4. serve   - start the port's InferenceServer on llama3-8b at full width
                and depth (random bf16 weights from a seed; page 16,
                prefill chunk 512, 8 slots, max_seq_len 4096), reset both
@@ -28,7 +31,10 @@ Phases, any failure exits non-zero:
                plain versions must agree.
   5. summary - one JSON line {"kernels": [...]} with each kernel's route,
                source, the TPU kernel it replaces, its launches in the
-               serve phase, error, times and bound.
+               serve phase, error, times and bound.  The prefill entry's
+               times and bound are the base-1536 chunk's, its max_abs_err
+               the worst over the three chunks, and `cases` holds each
+               chunk's numbers.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -51,17 +57,21 @@ BF16_FLOPS_PER_S = 989e12
 
 H, KVH, D, PS = 32, 8, 128, 16
 DTYPE = torch.bfloat16
-# bf16 outputs at unit-variance inputs: |kernel - plain| <= ATOL + RTOL *
-# |plain| per element.  Both round the output to bf16 (RTOL = one bf16
-# step, 2^-7 relative), and the two round the probabilities at other
-# places before the PV product (ATOL).
-KERNEL_ATOL = 2e-2
-KERNEL_RTOL = 2.0 ** -7
-# First-decode-step logits, kernels vs plain versions, through 32 bf16
-# layers: the per-layer attention differences above (mostly the plain
-# version's bf16 probabilities) compound through the residual stream;
-# bound the gap relative to the logits' own scale (4.0% seen on an H100).
-LOGITS_REL_TOL = 1e-1
+# A bf16 kernel output against its plain version run at f32 on the same
+# values, per element, with A the attention of |V| (the plain version on
+# |values|): the kernel rounds its output to bf16 once (U_BF16 * |plain|,
+# U_BF16 the unit roundoff); the prefill kernel also rounds the
+# probabilities to bf16 before the PV product, which moves sum(p v) / l
+# by at most U_BF16 * A; F32_SLACK * A covers f32 sums in other orders.
+U_BF16 = 2.0 ** -8
+F32_SLACK = 2.0 ** -12
+# First-decode-step logits, kernels vs plain versions (bf16), through 32
+# bf16 layers: the plain version rounds its normalised probabilities to
+# bf16, the prefill kernel rounds them before normalising and the decode
+# kernel not at all; the per-layer differences compound through the
+# residual stream.  Sound runs on an H100 read 3.55%, 3.87% and 3.97% of
+# max |logit|; the limit is 1.5x the largest.
+LOGITS_REL_TOL = 0.06
 
 
 def log(msg: str) -> None:
@@ -83,16 +93,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Max abs error of a kernel against its plain version; raises when
-    any element is outside the tolerance or not finite."""
-    got, want = got.float(), want.float()
-    err = (got - want).abs()
-    ok = bool(torch.isfinite(got).all()) and bool(
-        (err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()).all())
-    log(f'{name}: max_abs_err {err.max().item():.3e} (tolerance '
-        f'{KERNEL_ATOL} + {KERNEL_RTOL:.4g} x |plain|)')
-    if not ok:
+def check_kernel(name: str, got: torch.Tensor, plain, args, kw: dict, *,
+                 probs_rounded: bool) -> float:
+    """Max abs error of a bf16 kernel output `got` against `plain(*args,
+    **kw)` run at f32 on the same values; raises when an element is not
+    finite or outside U_BF16 * |plain| + F32_SLACK * A (+ U_BF16 * A when
+    the kernel rounds its probabilities).  args[2] is the values."""
+    args32 = [a.float() if torch.is_tensor(a) and a.is_floating_point()
+              else a for a in args]
+    kw32 = dict(kw, probs_dtype=torch.float32)
+    want = plain(*args32, **kw32).float()
+    absv = plain(*args32[:2], args32[2].abs(), *args32[3:], **kw32).float()
+    tol = U_BF16 * want.abs() + F32_SLACK * absv
+    if probs_rounded:
+        tol += U_BF16 * absv
+    err = (got.float() - want).abs()
+    worst = (err / tol).max().item()
+    log(f'{name}: max_abs_err {err.max().item():.3e} against the plain '
+        f'version at f32; worst element at {worst:.3f} of its bound (mean '
+        f'bound {tol.mean().item():.3e}, mean |plain| '
+        f'{want.abs().mean().item():.3e})')
+    if not (bool(torch.isfinite(got).all()) and worst <= 1.0):
         raise AssertionError(f'{name}: kernel disagrees with its plain '
                              'version')
     return err.max().item()
@@ -174,9 +195,10 @@ def phase_kernels(dev) -> dict:
     kw = dict(scale=D ** -0.5, probs_dtype=DTYPE)
     got = pa.paged_decode_attention(q, pk, pv, table, mask, **kw)
     torch.cuda.synchronize()
-    want = pa.paged_decode_attention_plain(q, pk, pv, table, mask, **kw)
     log(f'paged_decode: contexts {sorted(ctxs.tolist())}')
-    err = check_close('paged_decode', got, want)
+    err = check_kernel('paged_decode', got, pa.paged_decode_attention_plain,
+                       (q, pk, pv, table, mask), dict(scale=D ** -0.5),
+                       probs_rounded=False)
     kg = ga.gather_pages(pk, table)
     vg = ga.gather_pages(pv, table)
     ms = time_ms(lambda: pa.paged_decode_attention(q, pk, pv, table, mask,
@@ -204,7 +226,8 @@ def phase_kernels(dev) -> dict:
     values = torch.randn(1, KVH, max_len, D, generator=g, device=dev,
                          dtype=DTYPE)
     kv_mask = (torch.arange(max_len, device=dev) < true_len)[None]
-    for base in (0, 1536):
+    cases = []
+    for base in (0, 1536, 2560):
         qp = torch.randn(1, H, s, D, generator=g, device=dev, dtype=DTYPE)
         read_len = -(-(base + s) // 512) * 512   # the engine's read bucket
         n_read = read_len // PS
@@ -214,9 +237,11 @@ def phase_kernels(dev) -> dict:
         got = rp.ragged_prefill_attention(qp, keys, values, tbl, base,
                                           kv_mask, **pkw)
         torch.cuda.synchronize()
-        want = rp.ragged_prefill_attention_plain(qp, keys, values, tbl,
-                                                 base, kv_mask, **pkw)
-        err = check_close(f'ragged_prefill base {base}', got, want)
+        err = check_kernel(f'ragged_prefill base {base}', got,
+                           rp.ragged_prefill_attention_plain,
+                           (qp, keys, values, tbl, base, kv_mask),
+                           dict(scale=D ** -0.5, page_size=PS),
+                           probs_rounded=True)
         pos = torch.arange(read_len, device=dev)
         qpos = base + torch.arange(s, device=dev)
         lib_mask = ((pos[None, :] <= qpos[:, None])
@@ -229,16 +254,22 @@ def phase_kernels(dev) -> dict:
             qp, keys, values, tbl, base, kv_mask, **pkw))
         lib_ms = time_ms(lambda: sdpa(qp, kr, vr, attn_mask=lib_mask,
                                       scale=D ** -0.5, enable_gqa=True))
-        pairs = s * base + s * (s + 1) // 2
-        nbytes = (2 * s * H * D * 2 + 2 * (base + s) * KVH * D * 2
+        # Visible (query, column) pairs: causal, and under kv_mask.
+        pairs = sum(min(base + i + 1, true_len) for i in range(s))
+        nbytes = (2 * s * H * D * 2
+                  + 2 * min(base + s, true_len) * KVH * D * 2
                   + max_len + n_read * 4)
         bms, by = bound(nbytes, 4.0 * pairs * H * D)
         log(f'ragged_prefill base {base}: kernel {ms:.4f} ms, plain '
             f'{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms '
             f'({by})')
-        results['ragged_prefill'] = dict(max_abs_err=err, ms=ms,
-                                         plain_ms=plain_ms, bound_ms=bms,
-                                         bound_by=by, library_ms=lib_ms)
+        cases.append(dict(base=base, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=lib_ms))
+    main = dict(next(c for c in cases if c['base'] == 1536))
+    del main['base']
+    main['max_abs_err'] = max(c['max_abs_err'] for c in cases)
+    results['ragged_prefill'] = dict(main, cases=cases)
     return results
 
 

@@ -27,16 +27,15 @@
 // memory and reused by all 64 rows (FlashAttention-2 shape).  Tiles wholly
 // past the block's last query position, or wholly before its first
 // query's window, are skipped: they hold no visible column for any row.
-// bf16/f16 run on the tensor cores (ragged_prefill_mma_kernel): each of
-// the 4 warps owns 16 query rows and multiplies with warp-level
+// It takes bf16/f16 and runs on the tensor cores: each of the 4 warps
+// owns 16 query rows and multiplies with warp-level
 // 16x16x16 mma (nvcuda::wmma), f32 accumulation; the scores go through
 // shared memory for the masked online softmax (f32 m/l per row), the
 // probabilities are rounded to the input type for the PV product (as the
 // reference rounds them to probs_dtype), and the f32 output accumulator
 // lives in shared memory, rescaled by each row's correction factor
-// before the next tile's PV product is added.  f32 inputs run the same
-// tiling with f32 FMAs (ragged_prefill_fma_kernel).  Hopper's wgmma and
-// TMA, and a register-resident accumulator, are the next steps.
+// before the next tile's PV product is added.  Hopper's wgmma and TMA,
+// and a register-resident accumulator, are the next steps.
 // Edge semantics follow the reference: masked scores are -1e30, a row's
 // output is acc / l with l == 0 guarded to a zero output.  One
 // difference, on no row the serving path produces: a row that sees no
@@ -48,27 +47,15 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBR = 64;       // query rows per block
 constexpr int kBC = 64;       // cache columns per tile
-constexpr int kThreads = 128; // 8 row groups x 16 column lanes
-constexpr int kRowsPerThread = kBR / 8;
-constexpr int kColsPerThread = kBC / 16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+constexpr int kThreads = 128; // 4 warps of 16 query rows each
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
@@ -78,213 +65,6 @@ __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half(x);
 }
 
-// Reductions over the 16 lanes that share a row group (a half warp).
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int D>
-constexpr size_t fma_smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kBR) * (D + 1) +
-                          static_cast<size_t>(kBC) * (D + 1) +
-                          static_cast<size_t>(kBC) * D +
-                          static_cast<size_t>(kBR) * (kBC + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    ragged_prefill_fma_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                          const T* __restrict__ vc,
-                          const int* __restrict__ table,
-                          const int* __restrict__ base,
-                          const uint8_t* __restrict__ kv_mask,
-                          T* __restrict__ out, int H, int S, int kvh, int L,
-                          int n_read, int ps, int window, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int ND = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [kBR][D + 1]
-  float* Ks = Qs + kBR * DP;        // [kBC][D + 1]
-  float* Vs = Ks + kBC * DP;        // [kBC][D]
-  float* Ps = Vs + kBC * D;         // [kBR][kBC + 1]
-  __shared__ int col_pos[kBC];      // cache position, -1 past the walk
-  __shared__ uint8_t col_ok[kBC];   // kv_mask at that position
-
-  const int b = blockIdx.x / kvh;
-  const int h = blockIdx.x % kvh;
-  const int G = H / kvh;
-  const int GS = G * S;
-  const int r0 = blockIdx.y * kBR;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int bs = base[b];
-  const int* trow = table + static_cast<size_t>(b) * n_read;
-
-  for (int i = tid; i < kBR * D; i += kThreads) {
-    const int r = i / D;
-    const int e = i % D;
-    const int row = r0 + r;
-    float v = 0.f;
-    if (row < GS) {
-      const int g = row / S;
-      const int s = row % S;
-      v = to_f(q[((static_cast<size_t>(b) * H + h * G + g) * S + s) * D + e]);
-    }
-    Qs[r * DP + e] = v;
-  }
-
-  // Query positions this block covers, for tile skipping.
-  const int r_last = min(r0 + kBR, GS) - 1;
-  int s_lo = r0 % S;
-  int s_hi = r_last % S;
-  if (r0 / S != r_last / S) {
-    s_lo = 0;
-    s_hi = S - 1;
-  }
-  const int q_lo = bs + s_lo;
-  const int q_hi = bs + s_hi;
-
-  int qpos[kRowsPerThread];
-  float m[kRowsPerThread];
-  float l[kRowsPerThread];
-  float acc[kRowsPerThread][ND];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    qpos[i] = bs + (r0 + ty * kRowsPerThread + i) % S;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) acc[i][n] = 0.f;
-  }
-
-  const int pages_per_tile = kBC / ps;
-  for (int j0 = 0; j0 < n_read; j0 += pages_per_tile) {
-    bool live = false;
-    for (int p = 0; p < pages_per_tile && j0 + p < n_read; ++p) {
-      const int start = trow[j0 + p] * ps;
-      if (start <= q_hi &&
-          (window <= 0 || start + ps - 1 >= q_lo - window + 1))
-        live = true;
-    }
-    if (!live) continue;  // uniform over the block
-    __syncthreads();      // the previous tile's readers are done
-    if (tid < kBC) {
-      const int j = j0 + tid / ps;
-      int pos = -1;
-      uint8_t ok = 0;
-      if (j < n_read) {
-        pos = trow[j] * ps + tid % ps;
-        ok = kv_mask[static_cast<size_t>(b) * L + pos];
-      }
-      col_pos[tid] = pos;
-      col_ok[tid] = ok;
-    }
-    for (int i = tid; i < kBC * D; i += kThreads) {
-      const int c = i / D;
-      const int e = i % D;
-      const int j = j0 + c / ps;
-      float kv = 0.f;
-      float vv = 0.f;
-      if (j < n_read) {
-        const size_t off =
-            ((static_cast<size_t>(b) * kvh + h) * L + trow[j] * ps + c % ps) *
-                D + e;
-        kv = to_f(kc[off]);
-        vv = to_f(vc[off]);
-      }
-      Ks[c * DP + e] = kv;
-      Vs[c * D + e] = vv;
-    }
-    __syncthreads();
-
-    float sc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) sc[i][c] = 0.f;
-    for (int e = 0; e < D; ++e) {
-      float qv[kRowsPerThread];
-      float kv[kColsPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        qv[i] = Qs[(ty * kRowsPerThread + i) * DP + e];
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c)
-        kv[c] = Ks[(tx + 16 * c) * DP + e];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c) sc[i][c] += qv[i] * kv[c];
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      float m_loc = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) {
-        const int col = tx + 16 * c;
-        const int pos = col_pos[col];
-        const bool keep = pos >= 0 && col_ok[col] && pos <= qpos[i] &&
-                          (window <= 0 || pos >= qpos[i] - window + 1);
-        sc[i][c] = keep ? sc[i][c] * scale : kNegInf;
-        m_loc = fmaxf(m_loc, sc[i][c]);
-      }
-      const float m_new = fmaxf(m[i], group_max(m_loc));
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) {
-        const int col = tx + 16 * c;
-        const float p = col_pos[col] >= 0 ? expf(sc[i][c] - m_new) : 0.f;
-        Ps[(ty * kRowsPerThread + i) * (kBC + 1) + col] = p;
-        psum += p;
-      }
-      l[i] = corr * l[i] + group_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) acc[i][n] *= corr;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < kBC; ++c) {
-      float pv[kRowsPerThread];
-      float vv[ND];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        pv[i] = Ps[(ty * kRowsPerThread + i) * (kBC + 1) + c];
-#pragma unroll
-      for (int n = 0; n < ND; ++n) vv[n] = Vs[c * D + tx + 16 * n];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int n = 0; n < ND; ++n) acc[i][n] += pv[i] * vv[n];
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int row = r0 + ty * kRowsPerThread + i;
-    if (row >= GS) continue;
-    const int g = row / S;
-    const int s = row % S;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    T* op = out + ((static_cast<size_t>(b) * S + s) * H + h * G + g) * D;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) op[tx + 16 * n] = from_f<T>(acc[i][n] * inv);
-  }
-}
-
-// -- tensor-core version (bf16 / f16) --------------------------------------
-constexpr int kMmaWarps = 4;                 // 16 query rows each
 constexpr int kLdS = kBC + 4;                // f32 score tile row stride
 constexpr int kLdP = kBC + 8;                // probability tile row stride
 
@@ -525,45 +305,6 @@ cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_fma(const void* q, const void* kc, const void* vc,
-                       const int* table, const int* base,
-                       const uint8_t* kv_mask, void* out, int B, int H, int S,
-                       int kvh, int L, int n_read, int ps, int window,
-                       float scale, cudaStream_t stream) {
-  constexpr size_t smem = fma_smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ragged_prefill_fma_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const int G = H / kvh;
-  const dim3 grid(B * kvh, (G * S + kBR - 1) / kBR);
-  ragged_prefill_fma_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), table, base, kv_mask, static_cast<T*>(out),
-      H, S, kvh, L, n_read, ps, window, scale);
-  return cudaGetLastError();
-}
-
-// f32 runs the FMA kernel; 16-bit types run the tensor-core kernel.
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int* table, const int* base, const uint8_t* kv_mask,
-                   void* out, int B, int H, int S, int kvh, int L, int n_read,
-                   int ps, int window, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value) {
-    return launch_fma<T, D>(q, kc, vc, table, base, kv_mask, out, B, H, S,
-                            kvh, L, n_read, ps, window, scale, stream);
-  } else {
-    return launch_mma<T, D>(q, kc, vc, table, base, kv_mask, out, B, H, S,
-                            kvh, L, n_read, ps, window, scale, stream);
-  }
-}
-
 template <typename T>
 cudaError_t launch_d(const void* q, const void* kc, const void* vc,
                      const int* table, const int* base,
@@ -572,11 +313,11 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc,
                      float scale, cudaStream_t stream) {
   switch (d) {
     case 64:
-      return launch<T, 64>(q, kc, vc, table, base, kv_mask, out, B, H, S,
-                           kvh, L, n_read, ps, window, scale, stream);
+      return launch_mma<T, 64>(q, kc, vc, table, base, kv_mask, out, B, H,
+                               S, kvh, L, n_read, ps, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, kc, vc, table, base, kv_mask, out, B, H, S,
-                            kvh, L, n_read, ps, window, scale, stream);
+      return launch_mma<T, 128>(q, kc, vc, table, base, kv_mask, out, B, H,
+                                S, kvh, L, n_read, ps, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -584,9 +325,9 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16; window <= 0 means none.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// an unsupported head dim or a page size that does not divide 64).
+// dtype: 1 bfloat16, 2 float16; window <= 0 means none.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
+// dtype, an unsupported head dim or a page size that does not divide 64).
 extern "C" int ragged_prefill_launch(const void* q, const void* kc,
                                      const void* vc, const int* table,
                                      const int* base, const uint8_t* kv_mask,
@@ -598,9 +339,6 @@ extern "C" int ragged_prefill_launch(const void* q, const void* kc,
   if (ps <= 0 || ps > kBC || kBC % ps != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return launch_d<float>(q, kc, vc, table, base, kv_mask, out, B, H, S,
-                             d, kvh, L, n_read, ps, window, scale, st);
     case 1:
       return launch_d<__nv_bfloat16>(q, kc, vc, table, base, kv_mask, out, B,
                                      H, S, d, kvh, L, n_read, ps, window,

@@ -43,7 +43,8 @@ from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch import models as models_lib
 from skypilot_tpu_torch.infer import failures
 from skypilot_tpu_torch.infer import paging as paging_lib
-from skypilot_tpu_torch.models.llama import PagedCache, PrefillCache
+from skypilot_tpu_torch.models.llama import (PagedCache, PrefillCache,
+                                             resolve_kernel)
 
 NEG_INF = -1e30
 
@@ -141,20 +142,18 @@ def sample_logits_rows(logits: torch.Tensor,
 
 
 def _resolve(kind: str, what: str, *, on_cuda: bool, page_size: int) -> str:
-    if kind not in ('auto', 'fused', 'xla'):
-        raise ValueError(f"{what} must be 'auto', 'fused' or 'xla', "
-                         f'got {kind!r}')
-    if kind == 'auto':
-        return 'fused' if (on_cuda and page_size) else 'xla'
-    if kind == 'fused':
-        if not page_size:
+    """The model's rule (`resolve_kernel`), plus: the kernels need a
+    paged KV cache."""
+    if not page_size:
+        if kind == 'fused':
             raise ValueError(f"{what}='fused' requires a paged KV cache "
                              '(page_size > 0)')
-        if not on_cuda:
-            raise ValueError(f"{what}='fused' runs the CUDA kernel and "
-                             "needs device='cuda'; the plain PyTorch "
-                             "version is 'xla'")
-    return kind
+        kind = 'xla' if kind == 'auto' else kind
+    try:
+        return resolve_kernel(kind, torch.device('cuda' if on_cuda
+                                                 else 'cpu'))
+    except ValueError as e:
+        raise ValueError(f'{what}: {e}') from None
 
 
 def resolve_decode_kernel(decode_kernel: str, *, on_cuda: bool,

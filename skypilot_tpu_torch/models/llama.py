@@ -146,9 +146,21 @@ class PagedCache:
                                dtype=torch.int32, device=device))
 
 
-def _check_kernel(kernel: str) -> None:
-    if kernel not in ('fused', 'xla'):
-        raise ValueError(f"kernel must be 'fused' or 'xla', got {kernel!r}")
+def resolve_kernel(kernel: str, device: torch.device) -> str:
+    """'auto' -> 'fused' (the CUDA kernels) on a CUDA device, 'xla' (the
+    plain versions) on the CPU.  'fused' on the CPU raises: the kernels
+    never run there and are never silently swapped for the plain ones."""
+    if kernel not in ('auto', 'fused', 'xla'):
+        raise ValueError(f"kernel must be 'auto', 'fused' or 'xla', got "
+                         f'{kernel!r}')
+    on_cuda = torch.device(device).type == 'cuda'
+    if kernel == 'auto':
+        return 'fused' if on_cuda else 'xla'
+    if kernel == 'fused' and not on_cuda:
+        raise ValueError("kernel='fused' runs the CUDA kernels and needs "
+                         "CUDA tensors; the plain PyTorch versions are "
+                         "'xla'")
+    return kernel
 
 
 def _read_window(read_len: Optional[int], max_len: int, ps: int) -> int:
@@ -411,11 +423,12 @@ class Llama(nn.Module):
 
     def hidden(self, tokens: torch.Tensor, positions: torch.Tensor,
                cache: Union[PrefillCache, PagedCache],
-               kv_mask: Optional[torch.Tensor], *, kernel: str = 'xla',
+               kv_mask: Optional[torch.Tensor], *, kernel: str = 'auto',
                read_len: Optional[int] = None) -> torch.Tensor:
-        """Final-normed hidden states [B, S, dim]; updates `cache`."""
+        """Final-normed hidden states [B, S, dim]; updates `cache`.
+        `kernel` as `resolve_kernel`, on the tokens' device."""
         cfg = self.cfg
-        _check_kernel(kernel)
+        kernel = resolve_kernel(kernel, tokens.device)
         x = F.embedding(tokens, self.tok_embed).to(cfg.dtype)
         rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         # Everything the layers share is computed once per forward.
@@ -446,7 +459,7 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 cache: Union[PrefillCache, PagedCache],
-                kv_mask: Optional[torch.Tensor], *, kernel: str = 'xla',
+                kv_mask: Optional[torch.Tensor], *, kernel: str = 'auto',
                 read_len: Optional[int] = None) -> torch.Tensor:
         return self.head(self.hidden(tokens, positions, cache, kv_mask,
                                      kernel=kernel, read_len=read_len))

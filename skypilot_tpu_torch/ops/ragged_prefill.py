@@ -23,6 +23,7 @@ from skypilot_tpu_torch.ops import grouped_attention as ga
 launches = 0
 
 _SUPPORTED_D = (64, 128)
+_SUPPORTED_DTYPES = (torch.bfloat16, torch.float16)
 # ragged_prefill_launch(pointers..., ints..., scale, dtype code, stream).
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -82,7 +83,8 @@ def ragged_prefill_attention(q: torch.Tensor, keys: torch.Tensor,
     base:     int or [B] int32 cache-cursor base of each row.
     kv_mask:  bool [B, L] validity of each cache position.
 
-    Returns [B, S, H, d] in probs_dtype.
+    Returns [B, S, H, d] in probs_dtype.  On CUDA the kernel takes
+    bfloat16 or float16 (one dtype for q, cache and probs_dtype).
     """
     b, h, s, d = q.shape
     _, kvh, max_len, dk = keys.shape
@@ -124,6 +126,10 @@ def _launch(q, keys, values, table, base, kv_mask, *, scale, probs_dtype,
         raise ValueError('ragged_prefill_attention kernel needs q, cache '
                          'and probs_dtype of one dtype, got '
                          f'{q.dtype}/{keys.dtype}/{probs_dtype}')
+    if q.dtype not in _SUPPORTED_DTYPES:
+        raise ValueError(f'ragged_prefill_attention kernel runs on the '
+                         f'tensor cores and takes bfloat16 or float16, got '
+                         f'{q.dtype}')
     if table.dtype != torch.int32 or table.shape[0] != b:
         raise ValueError(f'table must be int32 [B, n_read], got '
                          f'{table.dtype} {tuple(table.shape)}')

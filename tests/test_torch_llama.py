@@ -8,6 +8,8 @@ cursor base > 0) and one paged decode step over a shuffled page pool.
 Logits must agree to 1e-4 absolute (f32, logits of magnitude ~1, summed
 over a few hundred terms per layer).
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -154,6 +156,22 @@ def test_paged_decode_step_logits_match(models):
     for slot in range(2):
         page = tables[slot][cursors[slot] // PS]
         assert tcache.key[:, page, :, cursors[slot] % PS].abs().sum() > 0
+
+
+@pytest.mark.parametrize('device,want', [('cuda', 'fused'), ('cpu', 'xla')])
+def test_default_kernel_follows_the_device(device, want):
+    for fn in (tllama.Llama.forward, tllama.Llama.hidden):
+        assert inspect.signature(fn).parameters['kernel'].default == 'auto'
+    assert tllama.resolve_kernel('auto', torch.device(device)) == want
+    assert tllama.resolve_kernel('xla', torch.device(device)) == 'xla'
+
+
+def test_fused_kernel_on_cpu_tensors_raises(models):
+    _, _, tmodel, tcfg = models
+    cache = tllama.PrefillCache.zeros(tcfg, 1, torch.device('cpu'))
+    with pytest.raises(ValueError, match='CUDA'):
+        tmodel(torch.zeros((1, 8), dtype=torch.long),
+               torch.arange(8)[None], cache, None, kernel='fused')
 
 
 def test_rope_matches_jax():
