@@ -6,8 +6,9 @@
 Phases, any failure exits non-zero:
   1. device  - require CUDA; print the card's name and power limit as
                `nvidia-smi --query-gpu=name,power.limit` gives them.
-  2. build   - compile both kernels from csrc/ (one nvcc per source, in
-               parallel) and print the build time and ptxas's report.
+  2. build   - compile every kernel library from csrc/ (one nvcc per
+               source, all in parallel) and print the build time and
+               ptxas's report.
   3. kernels - at llama3-8b serving shapes (H 32, kvh 8, d 128, page 16,
                bf16) hold each kernel against its plain PyTorch version
                run at f32 on the same values, within the kernel's
@@ -19,6 +20,16 @@ Phases, any failure exits non-zero:
                poisoned null page.  Prefill: the 512-token chunks of a
                3000-token prompt at cursor base 0, 1536 and 2560 (the
                last chunk, where kv_mask cuts into the chunk).
+     Flash attention (forward, dq, dk/dv): at the llama3-8b training
+               shape (B 2, H 32, kvh 8, S 4096, d 128, causal, bf16), with
+               a 1024-token window, and at a ragged S 1000 with d 64, each
+               output (out, lse, dq, dk, dv) against the plain versions
+               run at f32 on the same values, within
+               `flash_attention.rounding_bounds`; times of the kernels,
+               the plain versions (bf16 inputs) and SDPA (forward, and
+               forward + backward through autograd for the backward
+               pair; K/V repeated to H heads beforehand) at the training
+               shape.
   4. serve   - start the port's InferenceServer on llama3-8b at full width
                and depth (random bf16 weights from a seed; page 16,
                prefill chunk 512, 8 slots, max_seq_len 4096), reset both
@@ -29,16 +40,32 @@ Phases, any failure exits non-zero:
                tokens; prefill and decode tokens/s; and the first decode
                step's logits of one request with the kernels and with the
                plain versions must agree.
-  5. summary - one JSON line {"kernels": [...]} with each kernel's route,
-               source, the TPU kernel it replaces, its launches in the
-               serve phase, error, times and bound.  The prefill entry's
-               times and bound are the base-1536 chunk's, its max_abs_err
-               the worst over the three chunks, and `cases` holds each
-               chunk's numbers.
+  5. train   - `python -m skypilot_tpu_torch.train` (its `main`) on
+               llama3-8b at its published widths, depth cut to 4 layers,
+               batch 2 x seq 4096, 5 steps (bf16 compute, f32 params and
+               AdamW moments, remat), with every kernel's launch count set
+               to 0 just before and read just after: flash forward 2 L
+               steps (remat reruns it), dq and dk/dv L steps each, the
+               serving kernels 0.  Every loss and grad_norm finite; step
+               ms, tokens/s, peak memory.  Then, at one batch and the same
+               weights, the loss and global grad norm with the kernels
+               and with their plain versions must agree (twice, on two
+               batches); then 10 steps on one repeated batch must lower
+               the loss by more than 0.5 (the reference's memorization
+               test).
+  6. summary - one JSON line {"kernels": [...]} with each kernel's route,
+               source, the TPU kernel it replaces, its launches on its
+               path (serve phase, train phase), error, times and bound.
+               The prefill entry's times and bound are the base-1536
+               chunk's, its max_abs_err the worst over the three chunks,
+               and `cases` holds each chunk's numbers; the flash entries
+               likewise hold the training shape's times and bound and the
+               worst error over their three cases.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -72,6 +99,34 @@ F32_SLACK = 2.0 ** -12
 # residual stream.  Sound runs on an H100 read 3.55%, 3.87% and 3.97% of
 # max |logit|; the limit is 1.5x the largest.
 LOGITS_REL_TOL = 0.06
+# Training: llama3-8b widths at 4 of its 32 layers (f32 params and two f32
+# AdamW moments are 16 bytes a parameter: 128 GB at full depth, 31 GB at
+# 4), batch 2 x seq 4096, bf16 compute.
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 5
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+# One step at one batch and the same weights, kernels vs plain versions:
+# relative gaps of the loss and of the global grad norm.  The plain
+# forward keeps f32 probabilities where the kernel rounds them to bf16,
+# and the difference compounds through 4 layers and the backward pass.
+# Sound runs on two H100s read the same loss gaps, 1.19e-5 and 9.63e-6,
+# and grad-norm gaps, 4.61e-6 and 2.60e-6, on their two batches; the
+# limits are about 8x and 10x the largest reading, as two batches say
+# little of the spread over other data or software versions.
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_GNORM_REL_TOL = 5e-5
+# Memorization: 10 steps on one repeated batch (warmup 2, peak lr 3e-4)
+# must lower the loss by more than this, as the reference's
+# test_model_train.py::test_loss_decreases demands of its 20 steps.
+MEMORIZE_STEPS = 10
+MEMORIZE_DROP = 0.5
+# Flash-attention cases: (name, B, H, kvh, S, d, window), causal.
+FLASH_CASES = (
+    ('train', 2, 32, 8, 4096, 128, None),
+    ('window', 1, 32, 8, 4096, 128, 1024),
+    ('ragged_d64', 1, 32, 8, 1000, 64, None),
+)
+FLASH_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
 
 
 def log(msg: str) -> None:
@@ -273,6 +328,128 @@ def phase_kernels(dev) -> dict:
     return results
 
 
+def check_flash(name: str, got: torch.Tensor, want: torch.Tensor,
+                tol: torch.Tensor) -> float:
+    """Max abs error of a flash kernel output against its plain version
+    at f32; raises when an element is not finite or outside `tol`."""
+    err = (got.float() - want.float()).abs()
+    ratio = torch.where(tol > 0, err / tol,
+                        torch.where(err > 0, float('inf'), 0.0))
+    worst = ratio.max().item()
+    log(f'{name}: max_abs_err {err.max().item():.3e} against the plain '
+        f'version at f32; worst element at {worst:.3f} of its bound (mean '
+        f'bound {tol.mean().item():.3e}, mean |plain| '
+        f'{want.float().abs().mean().item():.3e})')
+    if not (bool(torch.isfinite(got).all()) and worst <= 1.0):
+        raise AssertionError(f'{name}: kernel disagrees with its plain '
+                             'version')
+    return err.max().item()
+
+
+def _flash_work(b, h, kvh, s, d, window):
+    """(bytes, flops) of each flash kernel for one causal case: each
+    input read once and each output written once; flops over the visible
+    (query, key) pairs, 2 d per product: the forward has two products a
+    pair (S, PV), dq three (S, dP, dS K), dk/dv four (S, dP, P^T dO,
+    dS^T Q)."""
+    pairs = sum(min(r + 1, window or r + 1) for r in range(s)) * b * h
+    q_bytes = b * h * s * d * 2
+    kv_bytes = 2 * b * kvh * s * d * 2
+    row_bytes = b * h * s * 4
+    return {
+        'flash_fwd': (2 * q_bytes + kv_bytes + row_bytes, 4.0 * pairs * d),
+        'flash_bwd_dq': (2 * q_bytes + kv_bytes + 2 * row_bytes
+                         + b * h * s * d * 4, 6.0 * pairs * d),
+        'flash_bwd_dkv': (2 * q_bytes + kv_bytes + 2 * row_bytes
+                          + 2 * b * kvh * s * d * 4, 8.0 * pairs * d),
+    }
+
+
+def _flash_case(dev, seed, case, b, h, kvh, s, d, window):
+    """Check one flash case; time it at the training shape.  Returns
+    (max_abs_err, (ms, plain_ms), library_ms) per kernel name."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=dev, dtype=DTYPE)
+                   for shape in ((b, h, s, d), (b, kvh, s, d),
+                                 (b, kvh, s, d), (b, h, s, d)))
+    kw = dict(scale=d ** -0.5, causal=True, window=window)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    log(f'flash {case}: B {b} H {h} kvh {kvh} S {s} d {d} window {window}')
+    tol = fa.rounding_bounds(q, k, v, do, lse, delta, **kw)
+    f32 = [x.float() for x in (q, k, v, do)]
+    out32, lse32 = fa.flash_fwd_plain(*f32[:3], **kw)
+    err_f = max(check_flash(f'flash_fwd {case} out', out, out32, tol['out']),
+                check_flash(f'flash_fwd {case} lse', lse, lse32, tol['lse']))
+    del out32, lse32
+    dq32, dk32, dv32 = fa.flash_bwd_plain(*f32, lse, delta, **kw)
+    err_dq = check_flash(f'flash_bwd_dq {case} dq', dq, dq32, tol['dq'])
+    err_dkv = max(check_flash(f'flash_bwd_dkv {case} dk', dk, dk32,
+                              tol['dk']),
+                  check_flash(f'flash_bwd_dkv {case} dv', dv, dv32,
+                              tol['dv']))
+    del dq32, dk32, dv32, f32, tol
+    errs = dict(zip(FLASH_KERNELS, (err_f, err_dq, err_dkv)))
+    fwd = lambda: fa.flash_fwd(q, k, v, **kw)
+    if case != 'train':
+        return errs, {'flash_fwd': (time_ms(fwd), None)}, {}
+    plain_bwd = time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta,
+                                                   **kw), iters=5, warmup=1)
+    times = {
+        'flash_fwd': (time_ms(fwd), time_ms(
+            lambda: fa.flash_fwd_plain(q, k, v, **kw), iters=5, warmup=1)),
+        'flash_bwd_dq': (time_ms(lambda: fa.flash_bwd_dq(
+            q, k, v, do, lse, delta, **kw)), plain_bwd),
+        'flash_bwd_dkv': (time_ms(lambda: fa.flash_bwd_dkv(
+            q, k, v, do, lse, delta, **kw)), plain_bwd),
+    }
+    # SDPA as the yardstick (the port never calls it), K/V repeated to
+    # H heads beforehand.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    krep, vrep = (x.repeat_interleave(h // kvh, dim=1) for x in (k, v))
+    lib_f = time_ms(lambda: sdpa(q, krep, vrep, is_causal=True,
+                                 scale=kw['scale']))
+    leaves = [x.detach().requires_grad_() for x in (q, krep, vrep)]
+    lib_fb = time_ms(lambda: torch.autograd.grad(
+        sdpa(*leaves, is_causal=True, scale=kw['scale']), leaves, do))
+    log(f'flash train: sdpa forward {lib_f:.4f} ms, forward + backward '
+        f'{lib_fb:.4f} ms (backward alone about {lib_fb - lib_f:.4f} ms); '
+        'the plain backward computes dq, dk and dv together')
+    return errs, times, dict(zip(FLASH_KERNELS, (lib_f, lib_fb, lib_fb)))
+
+
+def phase_flash_kernels(dev) -> dict:
+    results = {name: dict(cases=[]) for name in FLASH_KERNELS}
+    for ci, (case, b, h, kvh, s, d, window) in enumerate(FLASH_CASES):
+        errs, times, libs = _flash_case(dev, 10 + ci, case, b, h, kvh, s, d,
+                                        window)
+        torch.cuda.empty_cache()
+        work = _flash_work(b, h, kvh, s, d, window)
+        for name in FLASH_KERNELS:
+            bms, by = bound(*work[name])
+            entry = dict(case=case, max_abs_err=errs[name], bound_ms=bms,
+                         bound_by=by)
+            if name in times:
+                entry['ms'], entry['plain_ms'] = times[name]
+                log(f'{name} {case}: kernel {entry["ms"]:.4f} ms, plain '
+                    f'{entry["plain_ms"]} ms, library '
+                    f'{libs.get(name)} ms, bound {bms:.4f} ms ({by})')
+            if name in libs:
+                entry['library_ms'] = libs[name]
+            results[name]['cases'].append(entry)
+    for res in results.values():
+        main = next(c for c in res['cases'] if c['case'] == 'train')
+        res.update(max_abs_err=max(c['max_abs_err'] for c in res['cases']),
+                   ms=main['ms'], plain_ms=main['plain_ms'],
+                   bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                   library_ms=main['library_ms'])
+    return results
+
+
 def _post(url: str, body: dict, timeout: float = 600) -> dict:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={'Content-Type': 'application/json'})
@@ -329,8 +506,7 @@ def phase_serve(dev) -> dict:
             errors.append(repr(e))
 
     # The main path: every count set to 0 just before, read just after.
-    pa.launches = 0
-    rp.launches = 0
+    _reset_launch_counts()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=one, args=(i,))
                for i in range(len(reqs))]
@@ -403,21 +579,142 @@ def phase_serve(dev) -> dict:
     return launches
 
 
+def _launch_counts() -> dict:
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.ops import ragged_prefill as rp
+    return {'paged_decode': pa.launches, 'ragged_prefill': rp.launches,
+            'flash_fwd': fa.fwd_launches, 'flash_bwd_dq': fa.dq_launches,
+            'flash_bwd_dkv': fa.dkv_launches}
+
+
+def _reset_launch_counts() -> None:
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.ops import ragged_prefill as rp
+    pa.launches = rp.launches = 0
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+def phase_train(dev) -> dict:
+    from skypilot_tpu_torch.train import __main__ as train_main
+    from skypilot_tpu_torch.train import data as data_lib
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'train: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still '
+        'allocated before the train phase')
+    torch.cuda.reset_peak_memory_stats()
+    overrides = {'n_layers': TRAIN_LAYERS}
+    argv = ['--model', 'llama3-8b', '--model-overrides',
+            json.dumps(overrides), '--global-batch-size', str(TRAIN_BATCH),
+            '--seq-len', str(TRAIN_SEQ), '--steps', str(TRAIN_STEPS),
+            '--log-every', '1', '--json-metrics']
+    # The main path: every count set to 0 just before, read just after.
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = train_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L, n = TRAIN_LAYERS, TRAIN_STEPS
+    want = {'paged_decode': 0, 'ragged_prefill': 0, 'flash_fwd': 2 * L * n,
+            'flash_bwd_dq': L * n, 'flash_bwd_dkv': L * n}
+    log(f'train: llama3-8b widths, {L} layers, batch {TRAIN_BATCH} x seq '
+        f'{TRAIN_SEQ}, {n} steps in {wall:.1f}s (model init included); '
+        f'launches {launches}, expected {want}')
+    if launches != want:
+        raise AssertionError(f'train launches {launches} != {want}')
+    hist = metrics['history']
+    if len(hist) != n or not all(
+            np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])
+            for r in hist):
+        raise AssertionError(f'train: missing or non-finite steps: {hist}')
+    for r in hist:
+        log(f'train step {r["step"]}: loss {r["loss"]:.4f} grad_norm '
+            f'{r["grad_norm"]:.4f} step {r["step_ms"]:.1f} ms '
+            f'{r["tokens_per_sec"]:.1f} tokens/s')
+    steady = hist[1:]
+    step_ms = sum(r['step_ms'] for r in steady) / len(steady)
+    tps = TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3
+    log(f'train: steps 2-{n}: {step_ms:.1f} ms/step, {tps:.1f} tokens/s; '
+        f'peak memory allocated {peak:.2f} GiB')
+    del metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Kernels vs plain versions: one step's loss and grad norm, same
+    # weights, same batch.
+    config = trainer_lib.TrainConfig(
+        model='llama3-8b', global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        warmup_steps=2, total_steps=20,
+        model_overrides=dict(overrides, max_seq_len=TRAIN_SEQ))
+    tr = trainer_lib.Trainer(config, device=dev)
+    tr.init_state()
+    stream = data_lib.synthetic_data(TRAIN_BATCH, TRAIN_SEQ,
+                                     tr.model_config.vocab_size, seed=1,
+                                     device=dev)
+    gaps = []
+    for _ in range(2):
+        batch = next(stream)
+        got = {}
+        for kernel in ('fused', 'xla'):
+            m = trainer_lib.compute_grads(tr.model, batch, kernel=kernel)
+            gn = trainer_lib.global_norm({k: p.grad for k, p in
+                                          tr.model.named_parameters()})
+            got[kernel] = (float(m['loss']), float(gn))
+        tr.model.zero_grad(set_to_none=True)
+        (lk, gk), (lp, gp) = got['fused'], got['xla']
+        gap = (abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
+        gaps.append(gap)
+        log(f'train: one step, kernels vs plain versions: loss {lk:.6f} vs '
+            f'{lp:.6f} (rel gap {gap[0]:.3e}, limit {TRAIN_LOSS_REL_TOL}); '
+            f'grad norm {gk:.6f} vs {gp:.6f} (rel gap {gap[1]:.3e}, limit '
+            f'{TRAIN_GNORM_REL_TOL})')
+        if not (np.isfinite([lk, gk]).all() and gap[0] <= TRAIN_LOSS_REL_TOL
+                and gap[1] <= TRAIN_GNORM_REL_TOL):
+            raise AssertionError('train: kernels disagree with the plain '
+                                 'versions')
+
+    # Memorization: one repeated batch, the loss must fall.
+    losses = [float(tr.step(batch)['loss']) for _ in range(MEMORIZE_STEPS)]
+    log(f'train: {MEMORIZE_STEPS} steps on one repeated batch: losses '
+        f'{[round(x, 4) for x in losses]}')
+    if not (np.isfinite(losses).all()
+            and losses[-1] < losses[0] - MEMORIZE_DROP):
+        raise AssertionError(f'train: loss did not fall by more than '
+                             f'{MEMORIZE_DROP} on a repeated batch')
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     dev = torch.device('cuda')
     phase_build()
     kernels = phase_kernels(dev)
+    kernels.update(phase_flash_kernels(dev))
     launches = phase_serve(dev)
+    launches.update({k: v for k, v in phase_train(dev).items()
+                     if k.startswith('flash')})
     entries = []
-    for name, replaces in (
-            ('paged_decode',
+    for name, src, replaces in (
+            ('paged_decode', 'paged_decode',
              'skypilot_tpu/ops/paged_attention.py:56'),
-            ('ragged_prefill',
-             'skypilot_tpu/ops/ragged_prefill.py:61')):
+            ('ragged_prefill', 'ragged_prefill',
+             'skypilot_tpu/ops/ragged_prefill.py:61'),
+            ('flash_fwd', 'flash_fwd',
+             'skypilot_tpu/ops/flash_attention.py:165'),
+            ('flash_bwd_dq', 'flash_bwd',
+             'skypilot_tpu/ops/flash_attention.py:326'),
+            ('flash_bwd_dkv', 'flash_bwd',
+             'skypilot_tpu/ops/flash_attention.py:364')):
         entries.append(dict(
             name=name, route='cuda',
-            source=f'skypilot_tpu_torch/csrc/{name}.cu',
+            source=f'skypilot_tpu_torch/csrc/{src}.cu',
             replaces=replaces, launches=launches[name],
             **kernels[name]))
     log(f'card: {card}')

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
-"""Where a serving step's time goes in the PyTorch/H100 port.
+"""Where a serving or training step's time goes in the PyTorch/H100 port.
 
-    python3 scripts/port_profile.py [--trace-dir DIR]
+    python3 scripts/port_profile.py [--trace-dir DIR] [--windows LIST]
 
 Builds the port's ContinuousBatchingEngine on llama3-8b (random bf16
 weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
-4096, the CUDA kernels) and profiles two windows with torch.profiler:
+4096, the CUDA kernels) and profiles windows with torch.profiler:
 
   prefill - one 3000-token prompt: its six 512-token chunks and the
             decode step that emits its token;
-  decode  - 16 decode steps at batch 8 (8 live slots, 64-token prompts).
+  decode  - 16 decode steps at batch 8 (8 live slots, 64-token prompts);
+  train   - with the engine freed, the port's Trainer on llama3-8b widths
+            cut to 4 layers, batch 2 x seq 4096 (random weights from a
+            seed): 2 steps after one unprofiled step.
 
-For each window it prints one JSON line: host wall time per step (host
-clock around work that ends in a device synchronize), device busy time
-(the union of the kernels' intervals in the trace), the device's idle
-share, the two attention kernels' share, and the kernels that took the
-most device time.  With --trace-dir it also writes each window's Chrome
-trace there.  Needs one NVIDIA card.
+`--windows` picks some (default: prefill,decode,train).  For each window
+it prints one JSON line: host wall time per step (host clock around work
+that ends in a device synchronize), device busy time (the union of the
+kernels' intervals in the trace), the device's idle share, the attention
+kernels' share, and the kernels that took the most device time.  With
+--trace-dir it also writes each window's Chrome trace there.  Needs one
+NVIDIA card.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import os
 import subprocess
@@ -34,7 +39,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-_ATTENTION = ('paged_decode_kernel', 'ragged_prefill_')
+_ATTENTION = ('paged_decode_kernel', 'ragged_prefill_', 'flash_fwd_kernel',
+              'flash_bwd_')
 
 
 def _kernel_events(prof):
@@ -76,20 +82,70 @@ def _summary(name, prof, wall_s, steps):
     }
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--trace-dir', default=None)
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit('port_profile: needs an NVIDIA card')
+def _serve_windows(window, names):
     from skypilot_tpu_torch.infer import engine as engine_lib
-    torch.backends.cuda.matmul.allow_tf32 = False
     eng = engine_lib.ContinuousBatchingEngine(
         model='llama3-8b', n_slots=8, max_seq_len=4096, prefill_chunk=512,
         page_size=16, seed=0)
     eng.generate([[1, 2, 3]], engine_lib.SamplingConfig(max_new_tokens=2))
     rng = np.random.RandomState(0)
     vocab = eng.config.vocab_size
+
+    def prefill():
+        eng.submit(rng.randint(0, vocab, 3000).tolist(),
+                   engine_lib.SamplingConfig(max_new_tokens=1))
+        steps = 0
+        while eng.step():
+            steps += 1
+        return steps
+
+    if 'prefill' in names:
+        window('prefill', prefill)
+    if 'decode' in names:
+        for _ in range(8):
+            eng.submit(rng.randint(0, vocab, 64).tolist(),
+                       engine_lib.SamplingConfig(max_new_tokens=40))
+        eng.step()      # admits and prefills all 8, first decode step
+
+        def decode():
+            for _ in range(16):
+                eng.step()
+            return 16
+
+        window('decode', decode)
+        eng.run_until_idle()
+
+
+def _train_window(window):
+    from skypilot_tpu_torch.train import data as data_lib
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    config = trainer_lib.TrainConfig(
+        model='llama3-8b', global_batch_size=2, seq_len=4096,
+        model_overrides={'n_layers': 4, 'max_seq_len': 4096})
+    tr = trainer_lib.Trainer(config, device='cuda')
+    tr.init_state()
+    stream = data_lib.synthetic_data(2, 4096, tr.model_config.vocab_size,
+                                     device='cuda')
+    tr.step(next(stream))
+    batches = [next(stream) for _ in range(2)]
+
+    def train():
+        for batch in batches:
+            tr.step(batch)
+        return len(batches)
+
+    window('train', train)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--trace-dir', default=None)
+    parser.add_argument('--windows', default='prefill,decode,train')
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('port_profile: needs an NVIDIA card')
+    names = set(args.windows.split(','))
+    torch.backends.cuda.matmul.allow_tf32 = False
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 
@@ -106,27 +162,12 @@ def main() -> int:
                 args.trace_dir, f'port_profile_{name}.json'))
         print(json.dumps(_summary(name, prof, wall, steps)), flush=True)
 
-    def prefill():
-        eng.submit(rng.randint(0, vocab, 3000).tolist(),
-                   engine_lib.SamplingConfig(max_new_tokens=1))
-        steps = 0
-        while eng.step():
-            steps += 1
-        return steps
-
-    window('prefill', prefill)
-    for _ in range(8):
-        eng.submit(rng.randint(0, vocab, 64).tolist(),
-                   engine_lib.SamplingConfig(max_new_tokens=40))
-    eng.step()      # admits and prefills all 8, first decode step
-
-    def decode():
-        for _ in range(16):
-            eng.step()
-        return 16
-
-    window('decode', decode)
-    eng.run_until_idle()
+    if names & {'prefill', 'decode'}:
+        _serve_windows(window, names)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 'train' in names:
+        _train_window(window)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -8,7 +8,7 @@ setup(
     packages=find_packages(include=['skypilot_tpu', 'skypilot_tpu.*',
                                     'skypilot_tpu_torch',
                                     'skypilot_tpu_torch.*']),
-    package_data={'skypilot_tpu_torch': ['csrc/*.cu']},
+    package_data={'skypilot_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=[
         'click', 'filelock', 'jsonschema', 'networkx', 'pandas', 'psutil',

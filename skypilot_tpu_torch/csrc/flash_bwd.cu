@@ -1,0 +1,439 @@
+// Flash-attention backward for Hopper (sm_90a), CUDA C++: the dq pass and
+// the dk/dv pass of FlashAttention-2.
+//
+// Replaces skypilot_tpu/ops/flash_attention.py:_flash_bwd_dq_kernel and
+// _flash_bwd_dkv_kernel, the two Pallas kernels behind _flash_bwd_pallas.
+// Same contract:
+//   q, do    [B, H, Sq, d]      k, v [B, kvh, Skv, d]   (bf16 or f16)
+//   lse      [B, H, Sq] f32     saved by the forward
+//   delta    [B, H, Sq] f32     rowsum(dO * O), computed by the caller
+//   dq       [B, H, Sq, d] f32
+//   dk, dv   [B, kvh, Skv, d] f32, summed over the G = H / kvh query
+//            heads that share each kv head
+// Both recompute, per (query row, kv column) pair, the reference's
+// _bwd_block_math: S = q k * scale (masked to -1e30 as in the forward),
+// P = exp(S - lse), dP = dO v, dS = P (dP - delta) * scale; then
+// dq += dS K (dq pass), dv += P^T dO and dk += dS^T Q (dk/dv pass).
+//
+// What bounds them on the H100: operations.  At the training shape (B 2,
+// H 32, S 4096, d 128, causal) the dq pass does about 4.1e11 flops (three
+// products per visible pair) and the dk/dv pass about 5.5e11 (four), each
+// against well under a gigabyte of operands.  So both keep every product
+// on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) with
+// the accumulators in registers, and both feed P and dS, rounded to the
+// input type, from the C fragments of one product straight into the A
+// fragments of the next.  Blocks on Hopper run in no order, so neither
+// pass carries a sum across blocks as the TPU grid did: each owns its
+// output tile and loops inside.
+//   dq:    one block per (64-row q tile, batch * head), looping over the
+//          kv tiles the causal/window predicate lets through (the Pallas
+//          `should_run` as loop bounds), as the forward does.
+//   dk/dv: one block per (64-row kv tile, batch * kv head), looping over
+//          the G query heads of the group and, for each, over the 32-row
+//          q tiles from the first one the predicate lets through.  The
+//          group sum happens in the block's registers: deterministic, no
+//          atomics, as the TPU kernel's revisited output block was.  Each
+//          warp owns 16 kv rows and holds f32 dk and dv for them (two
+//          16 x d accumulators); the narrower 32-row q tile keeps the
+//          per-tile score fragments small enough to stay out of local
+//          memory.
+// Still to come for speed: wgmma, TMA and pipelined tile loads.
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace flash;
+
+constexpr int kBQ = 64;   // dq: query rows per block
+constexpr int kBK = 64;   // dq: kv columns per tile; dk/dv: kv rows per block
+constexpr int kBQ2 = 32;  // dk/dv: query rows per inner tile
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return static_cast<size_t>(2 * kBQ + 2 * kBK) * (D + 8) * 2;
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return static_cast<size_t>(2 * kBK + 2 * kBQ2) * (D + 8) * 2 +
+         2 * kBQ2 * sizeof(float);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int kvh, int Sq,
+                        int Skv, int causal, int window, int offset,
+                        float scale) {
+  constexpr int LD = D + 8;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + kBQ * LD;
+  T* Ks = dOs + kBQ * LD;
+  T* Vs = Ks + kBK * LD;
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest rows first
+  const int b = bh / H;
+  const int G = H / kvh;
+  const int kv_row = b * kvh + (bh % H) / G;
+  const size_t row_base = static_cast<size_t>(bh) * Sq;
+  const T* kb = k + static_cast<size_t>(kv_row) * Skv * D;
+  const T* vb = v + static_cast<size_t>(kv_row) * Skv * D;
+  const int q0 = qt * kBQ;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int t = lane % 4;
+
+  load_rows<T, D, kBQ>(Qs, q + row_base * D, q0, Sq, tid);
+  load_rows<T, D, kBQ>(dOs, dout + row_base * D, q0, Sq, tid);
+
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  int k_lo = 0;
+  int k_hi = Skv - 1;
+  if (causal) {
+    k_hi = min(k_hi, q_last + offset);
+    if (window > 0) k_lo = max(0, q0 + offset - window + 1);
+  }
+  const int j_lo = k_lo / kBK;
+  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBK;
+
+  const int r_loc = warp * 16 + lane / 4;
+  int pos[2];
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_loc + 8 * i;
+    pos[i] = row + offset;
+    row_lse[i] = row < Sq ? lse[row_base + row] : 0.f;
+    row_delta[i] = row < Sq ? delta[row_base + row] : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int k0 = j * kBK;
+    __syncthreads();
+    load_rows<T, D, kBK>(Ks, kb, k0, Skv, tid);
+    load_rows<T, D, kBK>(Vs, vb, k0, Skv, tid);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, 16 rows x 64 columns per warp.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = 0.f;
+        dp[n][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      load_a(aq, Qs, LD, warp * 16, kk * 16, lane);
+      load_a(ao, dOs, LD, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t bk[2], bv[2];
+        load_b_nk(bk, Ks, LD, n * 8, kk * 16, lane);
+        load_b_nk(bv, Vs, LD, n * 8, kk * 16, lane);
+        Elem<T>::mma(s[n], aq, bk);
+        Elem<T>::mma(dp[n], ao, bv);
+      }
+    }
+
+    // dS = P (dP - delta) * scale, P = exp(S - lse); kept in s.
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + n * 8 + 2 * t + (e & 1);
+        const float x = visible(pos[e / 2], col, causal, window)
+                            ? s[n][e] * scale
+                            : kNegInf;
+        const float p = col < Skv ? expf(x - row_lse[e / 2]) : 0.f;
+        s[n][e] = p * (dp[n][e] - row_delta[e / 2]) * scale;
+      }
+
+    // dq += dS K.
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t a[4];
+      pack_a<T>(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < NT / 2; ++n2) {
+        uint32_t b0[2], b1[2];
+        load_b_kn_x2(b0, b1, Ks, LD, kk * 16, n2 * 16, lane);
+        Elem<T>::mma(acc[2 * n2], a, b0);
+        Elem<T>::mma(acc[2 * n2 + 1], a, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_loc + 8 * i;
+    if (row >= Sq) continue;
+    float* drow = dq + (row_base + row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(drow + n * 8) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int kvh, int Sq, int Skv, int causal,
+                         int window, int offset, float scale) {
+  constexpr int LD = D + 8;
+  constexpr int NT = D / 8;
+  constexpr int NQ = kBQ2 / 8;  // 8-column tiles of a q tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + kBK * LD;
+  T* Qs = Vs + kBK * LD;
+  T* dOs = Qs + kBQ2 * LD;
+  float* lse_s = reinterpret_cast<float*>(dOs + kBQ2 * LD);
+  float* delta_s = lse_s + kBQ2;
+
+  const int bk = blockIdx.x;  // batch * kvh + kv head
+  const int kt = blockIdx.y;  // under a causal mask, most rows first
+  const int b = bk / kvh;
+  const int hk = bk % kvh;
+  const int G = H / kvh;
+  const int k0 = kt * kBK;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int t = lane % 4;
+
+  load_rows<T, D, kBK>(Ks, k + static_cast<size_t>(bk) * Skv * D, k0, Skv,
+                       tid);
+  load_rows<T, D, kBK>(Vs, v + static_cast<size_t>(bk) * Skv * D, k0, Skv,
+                       tid);
+
+  // The query rows that see any column of this kv tile.
+  const int k_last = min(k0 + kBK, Skv) - 1;
+  int q_lo = 0;
+  int q_hi = Sq - 1;
+  if (causal) {
+    q_lo = max(0, k0 - offset);
+    if (window > 0) q_hi = min(q_hi, k_last + window - 1 - offset);
+  }
+  const int i_lo = q_lo / kBQ2;
+  const int i_hi = q_hi < q_lo ? i_lo - 1 : q_hi / kBQ2;
+
+  const int r_loc = warp * 16 + lane / 4;
+  const int kpos[2] = {k0 + r_loc, k0 + r_loc + 8};
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[n][e] = 0.f;
+      dva[n][e] = 0.f;
+    }
+
+  for (int gi = 0; gi < G; ++gi) {
+    const size_t row_base = static_cast<size_t>(b * H + hk * G + gi) * Sq;
+    for (int i = i_lo; i <= i_hi; ++i) {
+      const int q0 = i * kBQ2;
+      __syncthreads();
+      load_rows<T, D, kBQ2>(Qs, q + row_base * D, q0, Sq, tid);
+      load_rows<T, D, kBQ2>(dOs, dout + row_base * D, q0, Sq, tid);
+      if (tid < kBQ2) {
+        const bool in = q0 + tid < Sq;
+        lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
+        delta_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T, 16 kv rows x 32 q columns a warp.
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[n][e] = 0.f;
+          dpt[n][e] = 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        load_a(ak, Ks, LD, warp * 16, kk * 16, lane);
+        load_a(av, Vs, LD, warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          uint32_t bq[2], bo[2];
+          load_b_nk(bq, Qs, LD, n * 8, kk * 16, lane);
+          load_b_nk(bo, dOs, LD, n * 8, kk * 16, lane);
+          Elem<T>::mma(st[n], ak, bq);
+          Elem<T>::mma(dpt[n], av, bo);
+        }
+      }
+
+      // P^T and dS^T in place of S^T and dP^T.
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1);
+          const int row = q0 + c;
+          const float x = visible(row + offset, kpos[e / 2], causal, window)
+                              ? st[n][e] * scale
+                              : kNegInf;
+          const float p = row < Sq ? expf(x - lse_s[c]) : 0.f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - delta_s[c]) * scale;
+        }
+
+      // dv += P^T dO and dk += dS^T Q.
+#pragma unroll
+      for (int kk = 0; kk < kBQ2 / 16; ++kk) {
+        uint32_t ap[4], ad[4];
+        pack_a<T>(ap, st[2 * kk], st[2 * kk + 1]);
+        pack_a<T>(ad, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+        for (int n2 = 0; n2 < NT / 2; ++n2) {
+          uint32_t b0[2], b1[2];
+          load_b_kn_x2(b0, b1, dOs, LD, kk * 16, n2 * 16, lane);
+          Elem<T>::mma(dva[2 * n2], ap, b0);
+          Elem<T>::mma(dva[2 * n2 + 1], ap, b1);
+          load_b_kn_x2(b0, b1, Qs, LD, kk * 16, n2 * 16, lane);
+          Elem<T>::mma(dka[2 * n2], ad, b0);
+          Elem<T>::mma(dka[2 * n2 + 1], ad, b1);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kpos[i] >= Skv) continue;
+    const size_t off = (static_cast<size_t>(bk) * Skv + kpos[i]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<float2*>(dk + off + n * 8) =
+          make_float2(dka[n][2 * i], dka[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(dv + off + n * 8) =
+          make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  int B, H, kvh, Sq, Skv, causal, window, offset;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a, float* dq) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  static bool configured = false;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dq_kernel<T, D>, smem, &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.Sq + kBQ - 1) / kBQ);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, dq, a.H, a.kvh, a.Sq, a.Skv, a.causal, a.window, a.offset,
+      a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  static bool configured = false;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkv_kernel<T, D>, smem, &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.kvh, (a.Skv + kBK - 1) / kBK);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, dk, dv, a.H, a.kvh, a.Sq, a.Skv, a.causal, a.window, a.offset,
+      a.scale);
+  return cudaGetLastError();
+}
+
+// Dispatch on dtype (1 bfloat16, 2 float16) and head dim (64, 128).
+template <template <typename, int> class Fn, typename... Out>
+cudaError_t dispatch(int dtype, int d, const Args& a, Out... out) {
+  if (dtype == 1 && d == 64) return Fn<__nv_bfloat16, 64>::run(a, out...);
+  if (dtype == 1 && d == 128) return Fn<__nv_bfloat16, 128>::run(a, out...);
+  if (dtype == 2 && d == 64) return Fn<__half, 64>::run(a, out...);
+  if (dtype == 2 && d == 128) return Fn<__half, 128>::run(a, out...);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+struct DqFn {
+  static cudaError_t run(const Args& a, float* dq) {
+    return launch_dq<T, D>(a, dq);
+  }
+};
+
+template <typename T, int D>
+struct DkvFn {
+  static cudaError_t run(const Args& a, float* dk, float* dv) {
+    return launch_dkv<T, D>(a, dk, dv);
+  }
+};
+
+bool bad_geometry(int H, int kvh, int Skv, int offset) {
+  return kvh <= 0 || H % kvh != 0 || Skv <= 0 || offset < 0;
+}
+
+}  // namespace
+
+// dtype: 1 bfloat16, 2 float16; window <= 0 means none.  Each returns
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for another
+// dtype, head dim or geometry).
+extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, const float* delta,
+                                   float* dq, int B, int H, int kvh, int Sq,
+                                   int Skv, int d, int causal, int window,
+                                   int offset, float scale, int dtype,
+                                   void* stream) {
+  if (B == 0 || Sq == 0) return cudaSuccess;
+  if (bad_geometry(H, kvh, Skv, offset)) return cudaErrorInvalidValue;
+  const Args a{q,   k,   v,  dout,   lse,    delta,  B,
+               H,   kvh, Sq, Skv,    causal, window, offset,
+               scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<DqFn>(dtype, d, a, dq);
+}
+
+extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* delta,
+                                    float* dk, float* dv, int B, int H,
+                                    int kvh, int Sq, int Skv, int d,
+                                    int causal, int window, int offset,
+                                    float scale, int dtype, void* stream) {
+  if (B == 0 || Skv == 0) return cudaSuccess;
+  if (bad_geometry(H, kvh, Skv, offset)) return cudaErrorInvalidValue;
+  const Args a{q,   k,   v,  dout,   lse,    delta,  B,
+               H,   kvh, Sq, Skv,    causal, window, offset,
+               scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<DkvFn>(dtype, d, a, dk, dv);
+}

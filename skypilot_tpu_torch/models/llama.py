@@ -1,8 +1,10 @@
-"""Llama family for serving, in PyTorch.
+"""Llama family for serving and training, in PyTorch.
 
 Port of skypilot_tpu/models/llama.py on its serving path
-(`decode=True`): RMSNorm, split-half rope, grouped-query attention
-against a KV cache, the SiLU-gated MLP and the untied f32 head.  The
+(`decode=True`) and its cacheless training forward: RMSNorm, split-half
+rope, grouped-query attention (against a KV cache, or over the whole
+sequence through the flash-attention kernels), the SiLU-gated MLP and
+the untied f32 head.  The
 mixed precision follows the reference: activations and matmuls in
 `dtype`, RMSNorm and rope in f32, attention scores in f32, logits in
 f32 (the head runs in f32, so its weight is kept in f32).
@@ -14,7 +16,10 @@ says which path runs (`PrefillCache`: the batch-1 chunked prefill at a
 global cursor; `PagedCache`: one-token slot decode against the page
 pool), `kernel` picks the CUDA kernel ('fused') or the plain PyTorch
 version ('xla', the reference's name for its oracle path), and
-`read_len` caps the cache reads.  Caches are updated in place.
+`read_len` caps the cache reads.  Caches are updated in place.  The
+training forward (`Llama.train_forward`) takes no cache; it reruns each
+block in the backward pass (`remat`, through torch.utils.checkpoint)
+as the reference's `nothing_saveable` policy does.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as checkpoint_lib
 
+from skypilot_tpu_torch.ops import flash_attention as fa
 from skypilot_tpu_torch.ops import paged_attention as pa
 from skypilot_tpu_torch.ops import ragged_prefill as rp
 
@@ -63,6 +70,12 @@ class LlamaConfig:
     # hd] pages, page 0 the reserved null page.
     kv_page_size: int = 0
     kv_n_pages: int = 0
+    # Training forward: rerun each block in the backward pass ('nothing'
+    # is saved but the block's input, the reference's default policy);
+    # attention through the flash kernels or the plain `mha_reference`.
+    remat: bool = True
+    remat_policy: str = 'nothing'
+    attention_impl: str = 'flash'
 
     def __post_init__(self):
         object.__setattr__(self, 'dtype', as_dtype(self.dtype))
@@ -275,6 +288,39 @@ def paged_slot_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
               probs_dtype=cfg.dtype)
 
 
+def _train_attention(cfg: LlamaConfig, *, kernel: str):
+    """The training forward's attention, `attend(q, k, v)` on [B, H|kvh,
+    S, hd] -> [B, S, H, hd]: causal over the whole sequence, with
+    `cfg.sliding_window`.  'flash' runs `flash_attention` (its CUDA
+    kernels for kernel='fused', their plain versions for 'xla'),
+    'reference' the plain `mha_reference` under autograd."""
+    if cfg.attention_impl in ('ring', 'ulysses'):
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} is context parallelism, "
+            "not ported yet (ROADMAP.md queue 1: 'Parallelism')")
+    if cfg.remat_policy == 'save_attn':
+        raise NotImplementedError(
+            "remat_policy='save_attn' is not ported yet (ROADMAP.md queue "
+            "1: 'Training, the rest')")
+    if cfg.remat_policy != 'nothing':
+        raise ValueError(f'Unknown remat_policy {cfg.remat_policy!r}; '
+                         "expected 'nothing' or 'save_attn'.")
+    window = cfg.sliding_window
+    if cfg.attention_impl == 'flash':
+        plain = kernel == 'xla'
+
+        def attend(q, k, v):
+            return fa.flash_attention(q, k, v, None, True, window,
+                                      plain=plain).transpose(1, 2)
+    elif cfg.attention_impl == 'reference':
+        def attend(q, k, v):
+            return fa.mha_reference(q, k, v, window=window).transpose(1, 2)
+    else:
+        raise ValueError(f"attention_impl must be 'flash', 'reference', "
+                         f"'ring' or 'ulysses', got {cfg.attention_impl!r}")
+    return attend
+
+
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
@@ -385,11 +431,13 @@ class Block(nn.Module):
 
 
 class Llama(nn.Module):
-    """Decoder-only transformer for cached serving; logits [B, S, V] f32.
+    """Decoder-only transformer; logits [B, S, V] f32.  `forward` and
+    `hidden` serve against a cache, `train_forward` trains.
 
-    Parameters are created uninitialized on `device`; fill them with
-    `init_weights` (random, from a generator) or `load_state_dict`
-    (e.g. from `bridge.params_from_jax`)."""
+    Parameters are created uninitialized on `device`, not requiring
+    grad; fill them with `init_weights` (random, from a generator) or
+    `load_state_dict` (e.g. from `bridge.params_from_jax`), and call
+    `requires_grad_()` to train them."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
@@ -452,6 +500,34 @@ class Llama(nn.Module):
         if isinstance(cache, PrefillCache):
             cache.cursor += tokens.shape[1]
         return self.final_norm(x)
+
+    def train_forward(self, tokens: torch.Tensor,
+                      positions: Optional[torch.Tensor] = None, *,
+                      return_hidden: bool = False,
+                      kernel: str = 'auto') -> torch.Tensor:
+        """Cacheless forward (the reference's `Llama.__call__` with
+        decode=False): f32 logits [B, S, V], or with `return_hidden` the
+        final-normed hidden states [B, S, dim].  Under autograd each
+        block is checkpointed when `cfg.remat` (its forward reruns in
+        the backward pass).  `kernel` as `resolve_kernel`, on the
+        tokens' device."""
+        cfg = self.cfg
+        attend = _train_attention(
+            cfg, kernel=resolve_kernel(kernel, tokens.device))
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device).expand(b, s)
+        x = F.embedding(tokens, self.tok_embed).to(cfg.dtype)
+        rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = checkpoint_lib.checkpoint(layer, x, rope, attend,
+                                              use_reentrant=False)
+            else:
+                x = layer(x, rope, attend)
+        x = self.final_norm(x)
+        return x if return_hidden else self.head(x)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """f32 logits from final-normed hidden states."""

@@ -20,17 +20,18 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Any, Dict, Iterable, Sequence, Tuple
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
-SOURCES = ('paged_decode', 'ragged_prefill')
+SOURCES = ('paged_decode', 'ragged_prefill', 'flash_fwd', 'flash_bwd')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lock = threading.Lock()
 _launchers: Dict[str, Any] = {}
+_libs: Dict[str, Any] = {}
 
 
 def _nvcc() -> str:
@@ -46,6 +47,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f'{name}.cu').read_bytes()
+    # Every shared header counts: a source may include any of them.
+    for header in sorted(CSRC.glob('*.cuh')):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
@@ -82,17 +86,23 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
     return out
 
 
-def launcher(name: str, argtypes: Sequence[Any]) -> Any:
-    """The C launcher `<name>_launch` of `csrc/<name>.cu` (built and
-    loaded on first use), returning a cudaError_t as int."""
+def launcher(name: str, argtypes: Sequence[Any],
+             symbol: Optional[str] = None) -> Any:
+    """The C launcher `symbol` (default `<name>_launch`) of
+    `csrc/<name>.cu` (built and loaded on first use), returning a
+    cudaError_t as int."""
+    symbol = symbol or f'{name}_launch'
     with _lock:
-        fn = _launchers.get(name)
+        fn = _launchers.get(symbol)
         if fn is None:
-            path, _ = build([name])[name]
-            fn = getattr(ctypes.CDLL(str(path)), f'{name}_launch')
+            lib = _libs.get(name)
+            if lib is None:
+                path, _ = build([name])[name]
+                lib = _libs[name] = ctypes.CDLL(str(path))
+            fn = getattr(lib, symbol)
             fn.restype = ctypes.c_int
             fn.argtypes = list(argtypes)
-            _launchers[name] = fn
+            _launchers[symbol] = fn
         return fn
 
 

@@ -22,11 +22,21 @@ A = attention of |V| (the same plain version on |values|):
                                               rounded to bf16 before PV:
                                               |sum (p' - p) v| / l <= u * A)
 2^-12 * A covers the f32 sums taken in other orders.
+
+Flash attention (forward, dq, dk/dv; bf16/f16 only): against the plain
+versions run at f32 on the same values (the backward on the kernel's
+lse and delta), within `flash_attention.rounding_bounds`, the per-element
+rounding bound derived in its docstring (16-bit rounding of the output,
+of P and of dS for their products, the score error of an f32 dot, and
+f32 sums).  The autograd op end to end: each gradient, rounded to the
+input type, within 2u |plain| + 2^-7 max |plain| of the plain versions'
+gradients at f32 (the wrapper's wiring, not its rounding, is the point).
 """
 import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu_torch.ops import flash_attention as fa
 from skypilot_tpu_torch.ops import paged_attention as pa
 from skypilot_tpu_torch.ops import ragged_prefill as rp
 
@@ -183,3 +193,95 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match='bfloat16 or float16'):
         rp.ragged_prefill_attention(*case, scale=0.1,
                                     probs_dtype=torch.float32, page_size=16)
+
+
+def _flash_case(dev, dtype, b, h, kvh, s, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    shapes = ((b, h, s, d), (b, kvh, s, d), (b, kvh, s, d), (b, h, s, d))
+    return [torch.randn(*shape, generator=g).to(dev, dtype)
+            for shape in shapes]
+
+
+def _assert_within(name, got, want, tol):
+    err = (got.float() - want.float()).abs()
+    ratio = torch.where(tol > 0, err / tol,
+                        torch.where(err > 0, float('inf'), 0.0))
+    assert torch.isfinite(got).all(), name
+    worst = ratio.max().item()
+    assert worst <= 1.0, (f'{name}: max |err| {err.max().item():.3e}, '
+                          f'{worst:.2f} x its bound')
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16],
+                         ids=['bf16', 'f16'])
+@pytest.mark.parametrize('b,h,kvh,s,d,causal,window,offset', [
+    (1, 4, 4, 128, 64, True, None, 0),
+    (2, 8, 2, 192, 128, True, None, 0),
+    (1, 8, 2, 200, 128, True, None, 0),
+    (1, 4, 1, 130, 64, False, None, 0),
+    (1, 8, 2, 256, 128, True, 70, 0),
+    (1, 4, 2, 128, 64, True, None, 40),
+    (1, 32, 8, 1000, 128, True, None, 0),
+], ids=['g1_d64', 'g4_b2', 'ragged', 'mqa_noncausal_ragged', 'window',
+        'offset', 'llama3_8b_heads'])
+def test_flash_kernels_match_plain(dev, dtype, b, h, kvh, s, d, causal,
+                                   window, offset):
+    q, k, v, do = _flash_case(dev, dtype, b, h, kvh, s, d)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, offset=offset)
+    before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + 1 for c in before)
+    assert out.dtype == dtype and lse.dtype == dq.dtype == torch.float32
+    assert dk.shape == dv.shape == (b, kvh, s, d)
+    tol = fa.rounding_bounds(q, k, v, do, lse, delta, **kw)
+    f32 = [x.float() for x in (q, k, v, do)]
+    out32, lse32 = fa.flash_fwd_plain(*f32[:3], **kw)
+    grads32 = fa.flash_bwd_plain(*f32, lse, delta, **kw)
+    for name, got, want in zip(('out', 'lse', 'dq', 'dk', 'dv'),
+                               (out, lse, dq, dk, dv),
+                               (out32, lse32) + tuple(grads32)):
+        _assert_within(name, got, want, tol[name])
+
+
+@pytest.mark.parametrize('h,kvh,s,window', [(8, 2, 192, None),
+                                            (4, 4, 130, 50)],
+                         ids=['gqa4', 'mha_window_ragged'])
+def test_flash_attention_autograd_matches_plain(dev, h, kvh, s, window):
+    q, k, v, do = _flash_case(dev, torch.bfloat16, 2, h, kvh, s, 128,
+                              seed=1)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    fa.flash_attention(*leaves, window=window).backward(do)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + 1 for c in before)
+    ref = [x.float().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*ref, window=window, plain=True).backward(do.float())
+    u = 2.0 ** -8
+    for got, want in zip(leaves, ref):
+        assert got.grad.dtype == torch.bfloat16
+        err = (got.grad.float() - want.grad).abs()
+        tol = 2 * u * want.grad.abs() + 2.0 ** -7 * want.grad.abs().max()
+        assert (err <= tol).all(), err.max().item()
+
+
+def test_flash_wrappers_raise_instead_of_falling_back(dev):
+    q, k, v, do = _flash_case(dev, torch.bfloat16, 1, 4, 2, 64, 64)
+    kw = dict(scale=0.125, causal=True)
+    with pytest.raises(ValueError, match='bfloat16 or float16'):
+        fa.flash_fwd(q.float(), k.float(), v.float(), **kw)
+    q48, k48, v48, _ = _flash_case(dev, torch.bfloat16, 1, 4, 2, 64, 48)
+    with pytest.raises(ValueError, match='head_dim'):
+        fa.flash_fwd(q48, k48, v48, **kw)
+    with pytest.raises(ValueError, match='device'):
+        fa.flash_fwd(q, k.cpu(), v, **kw)
+    with pytest.raises(ValueError, match='contiguous'):
+        fa.flash_fwd(q.transpose(2, 3), k, v, scale=0.125, causal=False)
+    lse = torch.zeros(1, 4, 64, device=dev)
+    with pytest.raises(ValueError, match='float32'):
+        fa.flash_bwd_dq(q, k, v, do, lse.bfloat16(), lse, **kw)
