@@ -99,9 +99,10 @@ F32_SLACK = 2.0 ** -12
 # residual stream.  Sound runs on an H100 read 3.55%, 3.87% and 3.97% of
 # max |logit|; the limit is 1.5x the largest.
 LOGITS_REL_TOL = 0.06
-# Training: llama3-8b widths at 4 of its 32 layers (f32 params and two f32
-# AdamW moments are 16 bytes a parameter: 128 GB at full depth, 31 GB at
-# 4), batch 2 x seq 4096, bf16 compute.
+# Training: llama3-8b widths at 4 of its 32 layers, to keep the run short
+# (f32 params, grads and two AdamW moments are 16 bytes a parameter: 128
+# GB at full depth does not fit the card, 31 GB at 4 layers leaves room),
+# batch 2 x seq 4096, bf16 compute.
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 5
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
@@ -596,10 +597,46 @@ def _reset_launch_counts() -> None:
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 
-def phase_train(dev) -> dict:
-    from skypilot_tpu_torch.train import __main__ as train_main
+def train_gaps(dev):
+    """One training step's loss and global grad norm with the kernels and
+    with their plain versions, same weights and batch, on each of two
+    batches.  Returns the trainer, the last batch and the relative gaps
+    [(loss gap, grad-norm gap)] (inf where a value is not finite)."""
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import trainer as trainer_lib
+    config = trainer_lib.TrainConfig(
+        model='llama3-8b', global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        warmup_steps=2, total_steps=20,
+        model_overrides={'n_layers': TRAIN_LAYERS, 'max_seq_len': TRAIN_SEQ})
+    tr = trainer_lib.Trainer(config, device=dev)
+    tr.init_state()
+    stream = data_lib.synthetic_data(TRAIN_BATCH, TRAIN_SEQ,
+                                     tr.model_config.vocab_size, seed=1,
+                                     device=dev)
+    gaps = []
+    for _ in range(2):
+        batch = next(stream)
+        got = {}
+        for kernel in ('fused', 'xla'):
+            m = trainer_lib.compute_grads(tr.model, batch, kernel=kernel)
+            gn = trainer_lib.global_norm({k: p.grad for k, p in
+                                          tr.model.named_parameters()})
+            got[kernel] = (float(m['loss']), float(gn))
+        tr.model.zero_grad(set_to_none=True)
+        (lk, gk), (lp, gp) = got['fused'], got['xla']
+        gap = (abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
+        if not np.isfinite([lk, gk, *gap]).all():
+            gap = (float('inf'), float('inf'))
+        gaps.append(gap)
+        log(f'train: one step, kernels vs plain versions: loss {lk:.6f} vs '
+            f'{lp:.6f} (rel gap {gap[0]:.3e}, limit {TRAIN_LOSS_REL_TOL}); '
+            f'grad norm {gk:.6f} vs {gp:.6f} (rel gap {gap[1]:.3e}, limit '
+            f'{TRAIN_GNORM_REL_TOL})')
+    return tr, batch, gaps
+
+
+def phase_train(dev) -> dict:
+    from skypilot_tpu_torch.train import __main__ as train_main
     gc.collect()
     torch.cuda.empty_cache()
     log(f'train: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still '
@@ -617,7 +654,7 @@ def phase_train(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = metrics['peak_memory_bytes'] / 2**30
     L, n = TRAIN_LAYERS, TRAIN_STEPS
     want = {'paged_decode': 0, 'ragged_prefill': 0, 'flash_fwd': 2 * L * n,
             'flash_bwd_dq': L * n, 'flash_bwd_dkv': L * n}
@@ -644,36 +681,10 @@ def phase_train(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Kernels vs plain versions: one step's loss and grad norm, same
-    # weights, same batch.
-    config = trainer_lib.TrainConfig(
-        model='llama3-8b', global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-        warmup_steps=2, total_steps=20,
-        model_overrides=dict(overrides, max_seq_len=TRAIN_SEQ))
-    tr = trainer_lib.Trainer(config, device=dev)
-    tr.init_state()
-    stream = data_lib.synthetic_data(TRAIN_BATCH, TRAIN_SEQ,
-                                     tr.model_config.vocab_size, seed=1,
-                                     device=dev)
-    gaps = []
-    for _ in range(2):
-        batch = next(stream)
-        got = {}
-        for kernel in ('fused', 'xla'):
-            m = trainer_lib.compute_grads(tr.model, batch, kernel=kernel)
-            gn = trainer_lib.global_norm({k: p.grad for k, p in
-                                          tr.model.named_parameters()})
-            got[kernel] = (float(m['loss']), float(gn))
-        tr.model.zero_grad(set_to_none=True)
-        (lk, gk), (lp, gp) = got['fused'], got['xla']
-        gap = (abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
-        gaps.append(gap)
-        log(f'train: one step, kernels vs plain versions: loss {lk:.6f} vs '
-            f'{lp:.6f} (rel gap {gap[0]:.3e}, limit {TRAIN_LOSS_REL_TOL}); '
-            f'grad norm {gk:.6f} vs {gp:.6f} (rel gap {gap[1]:.3e}, limit '
-            f'{TRAIN_GNORM_REL_TOL})')
-        if not (np.isfinite([lk, gk]).all() and gap[0] <= TRAIN_LOSS_REL_TOL
-                and gap[1] <= TRAIN_GNORM_REL_TOL):
+    tr, batch, gaps = train_gaps(dev)
+    for loss_gap, norm_gap in gaps:
+        if not (loss_gap <= TRAIN_LOSS_REL_TOL
+                and norm_gap <= TRAIN_GNORM_REL_TOL):
             raise AssertionError('train: kernels disagree with the plain '
                                  'versions')
 

@@ -5,17 +5,22 @@
 
 For each fault below, copies the port (skypilot_tpu_torch/ and
 chip_smoke.py) into skypilot_tpu_torch/_build/faults/<name>/ (git-ignored),
-changes one line of a kernel source there, and runs chip_smoke.py's
-device, build and flash-kernel phases in that copy, in a fresh process.
-The unchanged copy runs first as the control and must pass; every fault
-must fail.  Prints one JSON line per run (the fault, whether the check
-failed, and the check line that failed it) and exits 0 only when the
-control passes and every fault fails.  Needs one NVIDIA card.
+changes one line of a kernel source there, and runs in that copy, in a
+fresh process, chip_smoke.py's device, build and flash-kernel phases,
+then its train phase's kernels-vs-plain step (`train_gaps`: one step's
+loss and grad norm with the kernels and with the plain versions, on two
+batches).  The unchanged copy runs first as the control and must pass
+the kernel check; every fault must fail it.  Prints one JSON line per
+run (the fault, whether the kernel check failed and the check line that
+failed it, the train step's gaps and whether they break chip_smoke.py's
+limits) and exits 0 only when the control passes and every fault fails
+the kernel check.  Needs one NVIDIA card.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -39,11 +44,27 @@ FAULTS = (
      '? s[n][e] * (scale * 1.01f)'),
 )
 
-_RUN = ('import torch, chip_smoke as c\n'
+_RUN = ('import json, gc, torch, chip_smoke as c\n'
         'from skypilot_tpu_torch.ops import _build\n'
         'c.phase_device()\n'
         '_build.build(["flash_fwd", "flash_bwd"])\n'
-        'c.phase_flash_kernels(torch.device("cuda"))\n')
+        'dev = torch.device("cuda")\n'
+        'try:\n'
+        '    c.phase_flash_kernels(dev)\n'
+        '    failed = False\n'
+        'except AssertionError:\n'
+        '    failed = True\n'
+        'gc.collect(); torch.cuda.empty_cache()\n'
+        'gaps = c.train_gaps(dev)[2]\n'
+        'print("FAULT_RESULT " + json.dumps({\n'
+        '    "kernel_check_failed": failed, "train_gaps": gaps,\n'
+        '    "train_check_failed": any(\n'
+        '        not (lg <= c.TRAIN_LOSS_REL_TOL\n'
+        '             and ng <= c.TRAIN_GNORM_REL_TOL)\n'
+        '        for lg, ng in gaps)}))\n')
+
+
+_WORST = re.compile(r'worst element at (\S+) of its bound')
 
 
 def _copy(name: str) -> str:
@@ -66,18 +87,21 @@ def _plant(tree: str, src: str, old: str, new: str) -> None:
 
 
 def _check(name: str, tree: str) -> bool:
+    """Runs the checks in `tree`; returns whether the kernel check
+    failed.  A run that ends without its result line raises."""
     proc = subprocess.run([sys.executable, '-c', _RUN], cwd=tree,
                           capture_output=True, text=True, timeout=900)
     lines = proc.stdout.splitlines()
-    failed_at = next((ln for ln in reversed(lines)
-                      if 'of its bound' in ln and 'worst element' in ln),
-                     None)
-    failed = proc.returncode != 0
-    print(json.dumps({
-        'fault': name, 'check_failed': failed,
-        'at': failed_at if failed else None,
-        'error': proc.stderr.strip().splitlines()[-1:] if failed else None,
-    }), flush=True)
+    result = next((json.loads(ln.split(' ', 1)[1]) for ln in lines
+                   if ln.startswith('FAULT_RESULT ')), None)
+    if proc.returncode != 0 or result is None:
+        raise SystemExit(f'{name}: the run failed (exit {proc.returncode}): '
+                         f'{proc.stderr.strip().splitlines()[-3:]}')
+    failed = result['kernel_check_failed']
+    failed_at = next((ln for ln in lines if (m := _WORST.search(ln))
+                      and float(m.group(1)) > 1.0), None)
+    print(json.dumps({'fault': name, **result, 'at': failed_at}),
+          flush=True)
     return failed
 
 

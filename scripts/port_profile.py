@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where a serving or training step's time goes in the PyTorch/H100 port.
 
-    python3 scripts/port_profile.py [--trace-dir DIR] [--windows LIST]
+    python3 scripts/port_profile.py [--trace-dir DIR]
 
 Builds the port's ContinuousBatchingEngine on llama3-8b (random bf16
 weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
-4096, the CUDA kernels) and profiles windows with torch.profiler:
+4096, the CUDA kernels) and profiles three windows with torch.profiler:
 
   prefill - one 3000-token prompt: its six 512-token chunks and the
             decode step that emits its token;
@@ -14,13 +14,12 @@ weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
             cut to 4 layers, batch 2 x seq 4096 (random weights from a
             seed): 2 steps after one unprofiled step.
 
-`--windows` picks some (default: prefill,decode,train).  For each window
-it prints one JSON line: host wall time per step (host clock around work
-that ends in a device synchronize), device busy time (the union of the
-kernels' intervals in the trace), the device's idle share, the attention
-kernels' share, and the kernels that took the most device time.  With
---trace-dir it also writes each window's Chrome trace there.  Needs one
-NVIDIA card.
+For each window it prints one JSON line: host wall time per step (host
+clock around work that ends in a device synchronize), device busy time
+(the union of the kernels' intervals in the trace), the device's idle
+share, the attention kernels' share, and the kernels that took the most
+device time.  With --trace-dir it also writes each window's Chrome
+trace there.  Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -82,7 +81,7 @@ def _summary(name, prof, wall_s, steps):
     }
 
 
-def _serve_windows(window, names):
+def _serve_windows(window):
     from skypilot_tpu_torch.infer import engine as engine_lib
     eng = engine_lib.ContinuousBatchingEngine(
         model='llama3-8b', n_slots=8, max_seq_len=4096, prefill_chunk=512,
@@ -99,21 +98,19 @@ def _serve_windows(window, names):
             steps += 1
         return steps
 
-    if 'prefill' in names:
-        window('prefill', prefill)
-    if 'decode' in names:
-        for _ in range(8):
-            eng.submit(rng.randint(0, vocab, 64).tolist(),
-                       engine_lib.SamplingConfig(max_new_tokens=40))
-        eng.step()      # admits and prefills all 8, first decode step
+    window('prefill', prefill)
+    for _ in range(8):
+        eng.submit(rng.randint(0, vocab, 64).tolist(),
+                   engine_lib.SamplingConfig(max_new_tokens=40))
+    eng.step()      # admits and prefills all 8, first decode step
 
-        def decode():
-            for _ in range(16):
-                eng.step()
-            return 16
+    def decode():
+        for _ in range(16):
+            eng.step()
+        return 16
 
-        window('decode', decode)
-        eng.run_until_idle()
+    window('decode', decode)
+    eng.run_until_idle()
 
 
 def _train_window(window):
@@ -140,11 +137,9 @@ def _train_window(window):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--trace-dir', default=None)
-    parser.add_argument('--windows', default='prefill,decode,train')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('port_profile: needs an NVIDIA card')
-    names = set(args.windows.split(','))
     torch.backends.cuda.matmul.allow_tf32 = False
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -162,12 +157,10 @@ def main() -> int:
                 args.trace_dir, f'port_profile_{name}.json'))
         print(json.dumps(_summary(name, prof, wall, steps)), flush=True)
 
-    if names & {'prefill', 'decode'}:
-        _serve_windows(window, names)
-        gc.collect()
-        torch.cuda.empty_cache()
-    if 'train' in names:
-        _train_window(window)
+    _serve_windows(window)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_window(window)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -58,22 +58,11 @@ def _group_counts(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-def _diagonal_mask(sq: int, skv: int, offset: int, window: Optional[int],
-                   device) -> torch.Tensor:
-    """bool [Sq, Skv], the reference's XLA forward mask: the causal
-    diagonal aligned bottom-right and shifted by `offset`."""
-    ones = torch.ones((sq, skv), dtype=torch.bool, device=device)
-    mask = torch.tril(ones, diagonal=skv - sq + offset)
-    if window is not None:
-        mask &= ~torch.tril(ones, diagonal=skv - sq + offset - window)
-    return mask
-
-
-def _kernel_mask(sq: int, skv: int, offset: int, window: Optional[int],
+def _causal_mask(sq: int, skv: int, offset: int, window: Optional[int],
                  device) -> torch.Tensor:
-    """bool [Sq, Skv], the reference's kernels' mask: query row r at
-    position r + offset sees columns c <= r + offset (and, with a
-    window, c >= r + offset - window + 1)."""
+    """bool [Sq, Skv], the mask the kernels compute (the reference's
+    kernels' mask): query row r at position r + offset sees columns
+    c <= r + offset (and, with a window, c >= r + offset - window + 1)."""
     rows = offset + torch.arange(sq, device=device)[:, None]
     cols = torch.arange(skv, device=device)[None, :]
     keep = rows >= cols
@@ -93,7 +82,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.float().reshape(b, kvh, g, sq, d)
     s = torch.einsum('bngqd,bnkd->bngqk', qg, k.float()) * scale
     if causal:
-        mask = _diagonal_mask(sq, k.shape[2], offset, window, q.device)
+        mask = _causal_mask(sq, k.shape[2], offset, window, q.device)
         s = torch.where(mask, s, s.new_tensor(NEG_INF))
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -124,7 +113,7 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.float()
     s = torch.einsum('bngqd,bnkd->bngqk', qg, kf) * scale
     if causal:
-        keep = _kernel_mask(sq, skv, offset, window, q.device)
+        keep = _causal_mask(sq, skv, offset, window, q.device)
         s = torch.where(keep, s, s.new_tensor(NEG_INF))
     p = torch.exp(s - lse.float().reshape(b, kvh, g, sq, 1))
     dp = torch.einsum('bngqd,bnkd->bngqk', dog, vf)
@@ -147,7 +136,7 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.float().reshape(b, kvh, g, sq, d)
     s = torch.einsum('bngqd,bnkd->bngqk', qg, k.float()) * scale
     if causal:
-        mask = _diagonal_mask(sq, k.shape[2], offset, window, q.device)
+        mask = _causal_mask(sq, k.shape[2], offset, window, q.device)
         s = torch.where(mask, s, s.new_tensor(NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum('bngqk,bnkd->bngqd', p, v.float())
@@ -209,7 +198,7 @@ def rounding_bounds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dog = dof.reshape(b, kvh, g, sq, d)
     s = torch.einsum('bngqd,bnkd->bngqk', qg, kf) * scale
     if causal:
-        keep = _kernel_mask(sq, skv, offset, window, q.device)
+        keep = _causal_mask(sq, skv, offset, window, q.device)
         s = torch.where(keep, s, s.new_tensor(NEG_INF))
     p = torch.exp(s - lse.float().reshape(b, kvh, g, sq, 1))
     del s
@@ -427,6 +416,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `window` positions (causal, seq_q == seq_kv).  On CUDA tensors the
     kernels run unless `plain`; on CPU tensors the plain versions."""
     window = _normalize_window(window, causal, q.shape[2], k.shape[2])
+    _check_geometry(q, k, v, causal=causal, window=window, offset=0)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return FlashAttention.apply(q, k, v, float(scale), bool(causal), window,
                                 bool(plain))

@@ -73,6 +73,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         'seq_len': config.seq_len,
         'history': trainer.history,
     })
+    if dev.type == 'cuda':
+        metrics['peak_memory_bytes'] = torch.cuda.max_memory_allocated(dev)
     if args.json_metrics:
         print('SKYTPU_METRICS ' + json.dumps(metrics), flush=True)
     return metrics

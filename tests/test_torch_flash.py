@@ -27,6 +27,17 @@ FWD_TOL = 1e-5
 BWD_TOL = 1e-4
 BLOCK = 128
 
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_torch_thread():
+    """The suite runs these tests beside XLA:CPU tests on the same cores:
+    inputs this small need no intra-op threads of their own."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CASES = [
     # b, h, kvh, s, d, causal, window, offset
     (1, 4, 4, 256, 16, True, None, 0),
@@ -131,6 +142,10 @@ def test_window_normalization_and_checks():
         tfa.flash_attention(q, k, v, causal=False, window=8)
     with pytest.raises(ValueError, match='seq_q == seq_kv'):
         tfa.flash_attention(q, k[:, :, :32], v[:, :, :32], window=8)
+    # The plain path refuses what the kernels refuse, so its forward and
+    # backward see the kernels' one causal mask.
+    with pytest.raises(ValueError, match='seq_q == seq_kv'):
+        tfa.flash_attention(q, k[:, :, :32], v[:, :, :32], plain=True)
     with pytest.raises(ValueError, match='divisible'):
         tfa.flash_fwd(q[:, :3], k, v, scale=0.25, causal=True)
     with pytest.raises(ValueError, match='offset'):

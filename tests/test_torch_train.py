@@ -42,16 +42,39 @@ SEQ = 32
 CPU = torch.device('cpu')
 
 
+@pytest.fixture(scope='module', autouse=True)
+def _one_torch_thread():
+    """The suite runs these tests beside XLA:CPU tests on the same cores:
+    tiny f32 models need no intra-op threads of their own."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope='module')
+def jax_params():
+    """JAX llama-tiny params by layout, each initialised once a module
+    (attention_impl and sliding_window do not change them)."""
+    built = {}
+
+    def params(scan=True):
+        if scan not in built:
+            built[scan] = sharding.unbox(_jax_model(scan).init(
+                jax.random.PRNGKey(5),
+                jnp.zeros((1, SEQ), jnp.int32))['params'])
+        return built[scan]
+
+    return params
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
 def _jax_model(scan=True, **extra):
-    cfg = jllama.get_config('llama-tiny', **OV, scan_layers=scan, **extra)
-    model = jllama.Llama(cfg)
-    params = sharding.unbox(model.init(
-        jax.random.PRNGKey(5), jnp.zeros((1, SEQ), jnp.int32))['params'])
-    return model, params
+    return jllama.Llama(jllama.get_config('llama-tiny', **OV,
+                                          scan_layers=scan, **extra))
 
 
 def _port_model(params, **extra):
@@ -70,12 +93,14 @@ def _mesh1():
     return jmesh.make_mesh(jmesh.MeshConfig(), devices=jax.devices()[:1])
 
 
-@pytest.mark.parametrize('scan', [True, False], ids=['scanned', 'unscanned'])
-@pytest.mark.parametrize('extra', [{}, {'sliding_window': 8},
-                                   {'attention_impl': 'reference'}],
-                         ids=['flash', 'window', 'reference'])
-def test_training_forward_logits_match(scan, extra):
-    jmodel, params = _jax_model(scan, **extra)
+@pytest.mark.parametrize('extra,scan', [
+    ({}, True), ({}, False), ({'sliding_window': 8}, True),
+    ({'attention_impl': 'reference'}, True),
+], ids=['flash-scanned', 'flash-unscanned', 'window-scanned',
+        'reference-scanned'])
+def test_training_forward_logits_match(jax_params, extra, scan):
+    jmodel = _jax_model(scan, **extra)
+    params = jax_params(scan)
     tmodel, _ = _port_model(params, **extra)
     tok = _tokens()
     want = np.asarray(jmodel.apply({'params': params}, jnp.asarray(tok)))
@@ -93,8 +118,9 @@ def _batch(tok, targets):
             'mask': np.ones(tok.shape, np.float32)}
 
 
-def test_loss_and_every_gradient_match():
-    jmodel, params = _jax_model()
+def test_loss_and_every_gradient_match(jax_params):
+    jmodel = _jax_model()
+    params = jax_params()
     tmodel, cfg = _port_model(params)
     tmodel.requires_grad_(True)
     rng = np.random.RandomState(1)
@@ -165,24 +191,18 @@ def test_synthetic_data_matches_jax():
         assert got['inputs'].dtype == torch.int32
 
 
-def _trainers(**kw):
-    overrides = dict(OV, max_seq_len=SEQ)
-    jcfg = jtrainer.TrainConfig(model='llama-tiny', global_batch_size=2,
-                                seq_len=SEQ, warmup_steps=2, total_steps=10,
-                                model_overrides=overrides, **kw)
-    jt = jtrainer.Trainer(jcfg, mesh=_mesh1())
-    jt.init_state()
-    tcfg = ttrainer.TrainConfig(model='llama-tiny', global_batch_size=2,
-                                seq_len=SEQ, warmup_steps=2, total_steps=10,
-                                model_overrides=overrides, **kw)
-    tt = ttrainer.Trainer(tcfg, device='cpu')
-    tt.init_state(bridge.params_from_jax(_np(jt.state.params),
-                                         tt.model_config))
-    return jt, tt
+def _train_config(cls, **kw):
+    return cls(model='llama-tiny', global_batch_size=2, seq_len=SEQ,
+               warmup_steps=2, total_steps=10,
+               model_overrides=dict(OV, max_seq_len=SEQ), **kw)
 
 
 def test_three_trainer_steps_match_jax():
-    jt, tt = _trainers()
+    jt = jtrainer.Trainer(_train_config(jtrainer.TrainConfig), mesh=_mesh1())
+    jt.init_state()
+    tt = ttrainer.Trainer(_train_config(ttrainer.TrainConfig), device='cpu')
+    tt.init_state(bridge.params_from_jax(_np(jt.state.params),
+                                         tt.model_config))
     init = bridge.params_from_jax(_np(jt.state.params), tt.model_config)
     jit = jdata.synthetic_data(jt.mesh, global_batch_size=2, seq_len=SEQ,
                                vocab_size=512)
@@ -204,8 +224,12 @@ def test_three_trainer_steps_match_jax():
 
 
 def test_grad_accum_matches_one_full_batch():
-    _, full = _trainers()
-    _, accum = _trainers(grad_accum_steps=2)
+    full = ttrainer.Trainer(_train_config(ttrainer.TrainConfig),
+                            device='cpu')
+    accum = ttrainer.Trainer(_train_config(ttrainer.TrainConfig,
+                                           grad_accum_steps=2), device='cpu')
+    full.init_state()       # the same seed: the same weights
+    accum.init_state()
     batch = next(tdata.synthetic_data(2, SEQ, 512, device='cpu'))
     m1 = ttrainer.compute_grads(full.model, batch)
     m2 = ttrainer.compute_grads(accum.model, batch, grad_accum_steps=2)
