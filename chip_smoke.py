@@ -20,6 +20,12 @@ Phases, any failure exits non-zero:
                poisoned null page.  Prefill: the 512-token chunks of a
                3000-token prompt at cursor base 0, 1536 and 2560 (the
                last chunk, where kv_mask cuts into the chunk).
+     The int8 branches of both at the same shapes: the pools and caches
+               are quantize_int8_rows of the same bf16 rows (the decode
+               null page poisoned with int8 127 at a scale of 1e4), held
+               against the plain int8 versions at f32 on the same int8
+               values and scales; the library yardstick is SDPA on K/V
+               dequantized to bf16 beforehand (not timed).
      Flash attention (forward, dq, dk/dv): at the llama3-8b training
                shape (B 2, H 32, kvh 8, S 4096, d 128, causal, bf16), with
                a 1024-token window, and at a ragged S 1000 with d 64, each
@@ -32,14 +38,25 @@ Phases, any failure exits non-zero:
                shape.
   4. serve   - start the port's InferenceServer on llama3-8b at full width
                and depth (random bf16 weights from a seed; page 16,
-               prefill chunk 512, 8 slots, max_seq_len 4096), reset both
-               kernels' launch counts, POST 8 concurrent greedy /generate
+               prefill chunk 512, 8 slots, max_seq_len 4096), reset every
+               kernel's launch count, POST 8 concurrent greedy /generate
                requests (prompts of 40-3000 tokens, 32 new tokens) and 2
-               sampled ones, and read the counts: both kernels must have
-               launched.  Then: a repeated greedy prompt must give the same
-               tokens; prefill and decode tokens/s; and the first decode
-               step's logits of one request with the kernels and with the
-               plain versions must agree.
+               sampled ones, and read the counts: both float branches
+               must have launched, the int8 branches not.  Then: a
+               repeated greedy prompt must give the same tokens; prefill
+               and decode tokens/s; and the first decode step's logits of
+               one request with the kernels and with the plain versions
+               must agree.
+     serve_int8 - the bf16 server freed, the same with
+               kv_cache_dtype='int8' (same weights and requests): only
+               the int8 branches may launch, both must; the pools' bytes
+               against the bf16 ones; greedy repeat; tokens/s; then four
+               prompts (40-3000 tokens) prefilled and decoded one step
+               through the kernels and, apart, through the plain versions:
+               the prefill and decode logits must agree within
+               INT8_LOGITS_REL_TOL.  Readings only: the int8 cache's
+               logits against the bf16 cache's, and the share of greedy
+               tokens equal to the bf16 phase's.
   5. train   - `python -m skypilot_tpu_torch.train` (its `main`) on
                llama3-8b at its published widths, depth cut to 4 layers,
                batch 2 x seq 4096, 5 steps (bf16 compute, f32 params and
@@ -55,7 +72,8 @@ Phases, any failure exits non-zero:
                test).
   6. summary - one JSON line {"kernels": [...]} with each kernel's route,
                source, the TPU kernel it replaces, its launches on its
-               path (serve phase, train phase), error, times and bound.
+               path (serve phase, serve_int8 phase, train phase), error,
+               times and bound; the int8 entries carry "branch": "quant".
                The prefill entry's times and bound are the base-1536
                chunk's, its max_abs_err the worst over the three chunks,
                and `cases` holds each chunk's numbers; the flash entries
@@ -90,6 +108,17 @@ DTYPE = torch.bfloat16
 # U_BF16 the unit roundoff); the prefill kernel also rounds the
 # probabilities to bf16 before the PV product, which moves sum(p v) / l
 # by at most U_BF16 * A; F32_SLACK * A covers f32 sums in other orders.
+# The int8 branches hold to the same per-element bounds against the plain
+# int8 version run at f32 on the same int8 values and f32 scales, A then
+# being the attention of |V| at its scales (vs * |v|).  The decode
+# kernel converts int8 to f32 exactly and computes as the plain version
+# does, so its only rounding is the output's: U_BF16 * |plain|.  The
+# prefill kernel stages int8 as bf16, which is exact (|x| <= 127 fits
+# bf16's 8-bit significand), takes q . k in f32 from exact bf16 products,
+# multiplies the key scales in f32 as the plain version does, and rounds
+# p * vs to bf16 before the PV product: |(p vs)' - p vs| <= U_BF16 * p vs,
+# so sum (p vs)' v / l moves by at most U_BF16 * sum p vs |v| / l =
+# U_BF16 * A; with the output's rounding, U_BF16 * (|plain| + A).
 U_BF16 = 2.0 ** -8
 F32_SLACK = 2.0 ** -12
 # First-decode-step logits, kernels vs plain versions (bf16), through 32
@@ -99,6 +128,14 @@ F32_SLACK = 2.0 ** -12
 # residual stream.  Sound runs on an H100 read 3.55%, 3.87% and 3.97% of
 # max |logit|; the limit is 1.5x the largest.
 LOGITS_REL_TOL = 0.06
+# int8 KV cache, 32 layers: each prompt prefilled and decoded one step
+# through the int8 kernels and, separately, through the int8 plain
+# versions (bf16), so every layer's cache differs by the kernels'
+# roundings too; max |kernels - plain| over max |plain logit|, for the
+# prefill logits and the first decode step's.  A sound run on an H100
+# reads 0.0312-0.0418 over four prompts (eight readings); the limit is
+# 1.5x the largest.
+INT8_LOGITS_REL_TOL = 0.063
 # Training: llama3-8b widths at 4 of its 32 layers, to keep the run short
 # (f32 params, grads and two AdamW moments are 16 bytes a parameter: 128
 # GB at full depth does not fit the card, 31 GB at 4 layers leaves room),
@@ -164,7 +201,11 @@ def check_kernel(name: str, got: torch.Tensor, plain, args, kw: dict, *,
     if probs_rounded:
         tol += U_BF16 * absv
     err = (got.float() - want).abs()
-    worst = (err / tol).max().item()
+    # An element with no bound (an exact zero, e.g. a query that sees one
+    # int8 column holding 0) must be exact.
+    ratio = torch.where(tol > 0, err / tol,
+                        torch.where(err > 0, float('inf'), 0.0))
+    worst = ratio.max().item()
     log(f'{name}: max_abs_err {err.max().item():.3e} against the plain '
         f'version at f32; worst element at {worst:.3f} of its bound (mean '
         f'bound {tol.mean().item():.3e}, mean |plain| '
@@ -211,7 +252,12 @@ def phase_build() -> None:
                 log(f'  {line.strip()}')
 
 
-def _decode_inputs(dev, rng):
+def _decode_inputs(dev, rng, quant=False):
+    """Decode-step inputs: batch 8, contexts 100-4000 over a shuffled
+    page pool, a poisoned null page.  With `quant` the pools are
+    quantize_int8_rows of the same bf16 rows, and the null page holds
+    int8 127 at a scale of 1e4."""
+    from skypilot_tpu_torch.ops import grouped_attention as ga
     b = 8
     ctxs = np.linspace(100, 4000, b).astype(int)
     rng.shuffle(ctxs)
@@ -231,32 +277,44 @@ def _decode_inputs(dev, rng):
                      dtype=DTYPE)
     pv = torch.randn(n_pages, KVH, PS, D, generator=g, device=dev,
                      dtype=DTYPE)
-    pk[0] = 1e4    # null page: garbage the mask must keep out
-    pv[0] = 1e4
+    scales = {}
+    if quant:
+        pk, ks = ga.quantize_int8_rows(pk)
+        pv, vs = ga.quantize_int8_rows(pv)
+        pk[0] = pv[0] = 127   # null page: garbage the mask must keep out
+        ks[0] = vs[0] = 1e4
+        scales = dict(key_scale=ks, value_scale=vs)
+    else:
+        pk[0] = 1e4    # null page: garbage the mask must keep out
+        pv[0] = 1e4
     q = torch.randn(b, H, 1, D, generator=g, device=dev, dtype=DTYPE)
     return (q, pk, pv, torch.as_tensor(table, device=dev),
-            torch.as_tensor(mask, device=dev), ctxs)
+            torch.as_tensor(mask, device=dev), ctxs, scales)
 
 
-def phase_kernels(dev) -> dict:
+def _dequantized(x, scale):
+    """K/V in bf16 from an int8 cache (the library yardstick's input)."""
+    return (x.float() * scale).to(DTYPE)
+
+
+def _kernel_decode(dev, rng, quant):
     from skypilot_tpu_torch.ops import grouped_attention as ga
     from skypilot_tpu_torch.ops import paged_attention as pa
-    from skypilot_tpu_torch.ops import ragged_prefill as rp
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rng = np.random.RandomState(0)
-    results = {}
-
-    # -- paged decode -----------------------------------------------------
-    q, pk, pv, table, mask, ctxs = _decode_inputs(dev, rng)
-    kw = dict(scale=D ** -0.5, probs_dtype=DTYPE)
+    name = 'paged_decode_int8' if quant else 'paged_decode'
+    q, pk, pv, table, mask, ctxs, scales = _decode_inputs(dev, rng, quant)
+    kw = dict(scale=D ** -0.5, probs_dtype=DTYPE, **scales)
     got = pa.paged_decode_attention(q, pk, pv, table, mask, **kw)
     torch.cuda.synchronize()
-    log(f'paged_decode: contexts {sorted(ctxs.tolist())}')
-    err = check_kernel('paged_decode', got, pa.paged_decode_attention_plain,
-                       (q, pk, pv, table, mask), dict(scale=D ** -0.5),
-                       probs_rounded=False)
+    log(f'{name}: contexts {sorted(ctxs.tolist())}')
+    err = check_kernel(name, got, pa.paged_decode_attention_plain,
+                       (q, pk, pv, table, mask),
+                       dict(scale=D ** -0.5, **scales), probs_rounded=False)
     kg = ga.gather_pages(pk, table)
     vg = ga.gather_pages(pv, table)
+    if quant:   # dequantized beforehand, untimed
+        kg = _dequantized(kg, ga.gather_pages(scales['key_scale'], table))
+        vg = _dequantized(vg, ga.gather_pages(scales['value_scale'], table))
     ms = time_ms(lambda: pa.paged_decode_attention(q, pk, pv, table, mask,
                                                    **kw))
     plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
@@ -265,22 +323,36 @@ def phase_kernels(dev) -> dict:
                                   scale=D ** -0.5, enable_gqa=True))
     live = int(ctxs.sum())
     b = q.shape[0]
-    nbytes = (2 * b * H * D * 2 + 2 * live * KVH * D * 2
+    # q and out bf16; K/V bf16, or int8 with an f32 scale a row each.
+    kv_row = 2 * (D + 4) if quant else 2 * D * 2
+    nbytes = (2 * b * H * D * 2 + live * KVH * kv_row
               + table.numel() * 4 + b * mask.shape[-1])
     bms, by = bound(nbytes, 4.0 * live * H * D)
-    log(f'paged_decode: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-        f'sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})')
-    results['paged_decode'] = dict(max_abs_err=err, ms=ms,
-                                   plain_ms=plain_ms, bound_ms=bms,
-                                   bound_by=by, library_ms=lib_ms)
+    lib = 'sdpa on K/V dequantized to bf16 beforehand' if quant else 'sdpa'
+    log(f'{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+        f'{lib} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
 
-    # -- ragged prefill ---------------------------------------------------
+
+def _kernel_prefill(dev, quant):
+    from skypilot_tpu_torch.ops import grouped_attention as ga
+    from skypilot_tpu_torch.ops import ragged_prefill as rp
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    name = 'ragged_prefill_int8' if quant else 'ragged_prefill'
     s, max_len, true_len = 512, 4096, 3000
     g = torch.Generator(device=dev).manual_seed(2)
     keys = torch.randn(1, KVH, max_len, D, generator=g, device=dev,
                        dtype=DTYPE)
     values = torch.randn(1, KVH, max_len, D, generator=g, device=dev,
                          dtype=DTYPE)
+    scales = {}
+    lib_k, lib_v = keys, values
+    if quant:
+        keys, ks = ga.quantize_int8_rows(keys)
+        values, vs = ga.quantize_int8_rows(values)
+        scales = dict(key_scale=ks, value_scale=vs)
+        lib_k, lib_v = _dequantized(keys, ks), _dequantized(values, vs)
     kv_mask = (torch.arange(max_len, device=dev) < true_len)[None]
     cases = []
     for base in (0, 1536, 2560):
@@ -289,21 +361,22 @@ def phase_kernels(dev) -> dict:
         n_read = read_len // PS
         tbl = torch.arange(n_read, dtype=torch.int32,
                            device=dev)[None].contiguous()
-        pkw = dict(scale=D ** -0.5, probs_dtype=DTYPE, page_size=PS)
+        pkw = dict(scale=D ** -0.5, probs_dtype=DTYPE, page_size=PS,
+                   **scales)
         got = rp.ragged_prefill_attention(qp, keys, values, tbl, base,
                                           kv_mask, **pkw)
         torch.cuda.synchronize()
-        err = check_kernel(f'ragged_prefill base {base}', got,
+        err = check_kernel(f'{name} base {base}', got,
                            rp.ragged_prefill_attention_plain,
                            (qp, keys, values, tbl, base, kv_mask),
-                           dict(scale=D ** -0.5, page_size=PS),
+                           dict(scale=D ** -0.5, page_size=PS, **scales),
                            probs_rounded=True)
         pos = torch.arange(read_len, device=dev)
         qpos = base + torch.arange(s, device=dev)
         lib_mask = ((pos[None, :] <= qpos[:, None])
                     & kv_mask[0, :read_len][None])[None, None]
-        kr = keys[:, :, :read_len]
-        vr = values[:, :, :read_len]
+        kr = lib_k[:, :, :read_len]
+        vr = lib_v[:, :, :read_len]
         ms = time_ms(lambda: rp.ragged_prefill_attention(
             qp, keys, values, tbl, base, kv_mask, **pkw))
         plain_ms = time_ms(lambda: rp.ragged_prefill_attention_plain(
@@ -312,12 +385,15 @@ def phase_kernels(dev) -> dict:
                                       scale=D ** -0.5, enable_gqa=True))
         # Visible (query, column) pairs: causal, and under kv_mask.
         pairs = sum(min(base + i + 1, true_len) for i in range(s))
+        kv_row = 2 * (D + 4) if quant else 2 * D * 2
         nbytes = (2 * s * H * D * 2
-                  + 2 * min(base + s, true_len) * KVH * D * 2
+                  + min(base + s, true_len) * KVH * kv_row
                   + max_len + n_read * 4)
         bms, by = bound(nbytes, 4.0 * pairs * H * D)
-        log(f'ragged_prefill base {base}: kernel {ms:.4f} ms, plain '
-            f'{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms '
+        lib = ('sdpa on K/V dequantized to bf16 beforehand' if quant
+               else 'sdpa')
+        log(f'{name} base {base}: kernel {ms:.4f} ms, plain '
+            f'{plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {bms:.4f} ms '
             f'({by})')
         cases.append(dict(base=base, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -325,7 +401,21 @@ def phase_kernels(dev) -> dict:
     main = dict(next(c for c in cases if c['base'] == 1536))
     del main['base']
     main['max_abs_err'] = max(c['max_abs_err'] for c in cases)
-    results['ragged_prefill'] = dict(main, cases=cases)
+    return dict(main, cases=cases)
+
+
+def phase_kernels(dev, quant=(False, True)) -> dict:
+    """The serving kernels at llama3-8b shapes, float and int8 branches
+    (`quant` picks which)."""
+    rng = np.random.RandomState(0)
+    results = {}
+    if False in quant:
+        results['paged_decode'] = _kernel_decode(dev, rng, False)
+        results['ragged_prefill'] = _kernel_prefill(dev, False)
+    if True in quant:
+        results['paged_decode_int8'] = _kernel_decode(
+            dev, np.random.RandomState(0), True)
+        results['ragged_prefill_int8'] = _kernel_prefill(dev, True)
     return results
 
 
@@ -460,26 +550,35 @@ def _post(url: str, body: dict, timeout: float = 600) -> dict:
         return json.loads(resp.read())
 
 
-def phase_serve(dev) -> dict:
-    from skypilot_tpu_torch.infer import engine as engine_lib
+SERVE_KERNELS = ('paged_decode', 'ragged_prefill')
+SERVE_KERNELS_INT8 = ('paged_decode_int8', 'ragged_prefill_int8')
+
+
+def _start_server(dev, kv_cache_dtype: str):
+    """The port's InferenceServer on llama3-8b at full width and depth
+    (random bf16 weights from the engine's seed 0, so every call serves
+    the same weights), answering on a free localhost port.  Returns
+    (server, its HTTP thread, base url)."""
     from skypilot_tpu_torch.infer import server as server_lib
-    from skypilot_tpu_torch.ops import paged_attention as pa
-    from skypilot_tpu_torch.ops import ragged_prefill as rp
     t0 = time.perf_counter()
     srv = server_lib.InferenceServer(
         model='llama3-8b', port=0, host='127.0.0.1', max_batch_size=8,
         max_seq_len=4096, prefill_chunk=512, page_size=16,
-        allow_random_weights=True, device=dev)
+        allow_random_weights=True, kv_cache_dtype=kv_cache_dtype,
+        device=dev)
     eng = srv.engine
     cfg = eng.config
-    log(f'serve: llama3-8b dim {cfg.dim} layers {cfg.n_layers} heads '
-        f'{cfg.n_heads}/{cfg.n_kv_heads} ffn {cfg.ffn_dim} vocab '
-        f'{cfg.vocab_size} {cfg.dtype}; kernels decode={eng.decode_kernel} '
+    log(f'serve[{kv_cache_dtype}]: llama3-8b dim {cfg.dim} layers '
+        f'{cfg.n_layers} heads {cfg.n_heads}/{cfg.n_kv_heads} ffn '
+        f'{cfg.ffn_dim} vocab {cfg.vocab_size} {cfg.dtype}, KV cache '
+        f'{eng.kv_cache_dtype}; kernels decode={eng.decode_kernel} '
         f'prefill={eng.prefill_kernel}; ready in '
         f'{time.perf_counter() - t0:.1f}s, '
         f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
     if (eng.decode_kernel, eng.prefill_kernel) != ('fused', 'fused'):
         raise AssertionError('serving path does not run the CUDA kernels')
+    if eng.kv_cache_dtype != kv_cache_dtype:
+        raise AssertionError(f'KV cache is {eng.kv_cache_dtype}')
     srv.start()
     http_thread = threading.Thread(target=srv.serve_forever, daemon=True)
     http_thread.start()
@@ -487,16 +586,24 @@ def phase_serve(dev) -> dict:
     with urllib.request.urlopen(url + '/health', timeout=60) as r:
         if json.loads(r.read()).get('status') != 'ok':
             raise AssertionError('/health is not ok')
-    rng = np.random.RandomState(3)
-    vocab = cfg.vocab_size
-    greedy_lens = [40, 200, 500, 900, 1400, 2000, 2500, 3000]
-    sampled_lens = [300, 1000]
-    new = 32
+    return srv, http_thread, url
+
+
+GREEDY_LENS = [40, 200, 500, 900, 1400, 2000, 2500, 3000]
+SAMPLED_LENS = [300, 1000]
+SERVE_NEW = 32
+
+
+def _serve_main_path(url: str, vocab: int, rng, kv_cache_dtype: str):
+    """The main path: 8 concurrent greedy and 2 sampled /generate
+    requests, with every launch count set to 0 just before and read just
+    after.  Returns (completions, launches, the requests)."""
     reqs = [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
-                 max_new_tokens=new, temperature=0.0) for n in greedy_lens]
+                 max_new_tokens=SERVE_NEW, temperature=0.0)
+            for n in GREEDY_LENS]
     reqs += [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
-                  max_new_tokens=new, temperature=0.8, top_k=50, top_p=0.9,
-                  seed=i) for i, n in enumerate(sampled_lens)]
+                  max_new_tokens=SERVE_NEW, temperature=0.8, top_k=50,
+                  top_p=0.9, seed=i) for i, n in enumerate(SAMPLED_LENS)]
     out = [None] * len(reqs)
     errors = []
 
@@ -506,7 +613,6 @@ def phase_serve(dev) -> dict:
         except Exception as e:  # pylint: disable=broad-except
             errors.append(repr(e))
 
-    # The main path: every count set to 0 just before, read just after.
     _reset_launch_counts()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=one, args=(i,))
@@ -516,28 +622,38 @@ def phase_serve(dev) -> dict:
     for t in threads:
         t.join(timeout=900)
     burst_s = time.perf_counter() - t0
-    launches = {'paged_decode': pa.launches, 'ragged_prefill': rp.launches}
+    launches = {k: v for k, v in _launch_counts().items()
+                if k in SERVE_KERNELS + SERVE_KERNELS_INT8}
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f'requests failed: {errors}')
     for toks in out:
-        if len(toks) != new or not all(0 <= t < vocab for t in toks):
+        if len(toks) != SERVE_NEW or not all(0 <= t < vocab for t in toks):
             raise AssertionError(f'bad completion: {toks}')
-    log(f'serve: {len(reqs)} concurrent requests, '
-        f'{sum(greedy_lens + sampled_lens)} prompt tokens, '
-        f'{len(reqs) * new} generated, in {burst_s:.2f}s; launches '
+    log(f'serve[{kv_cache_dtype}]: {len(reqs)} concurrent requests, '
+        f'{sum(GREEDY_LENS + SAMPLED_LENS)} prompt tokens, '
+        f'{len(reqs) * SERVE_NEW} generated, in {burst_s:.2f}s; launches '
         f'{launches}')
-    if min(launches.values()) <= 0:
-        raise AssertionError(f'a kernel never launched: {launches}')
+    ran, idle = ((SERVE_KERNELS_INT8, SERVE_KERNELS)
+                 if kv_cache_dtype == 'int8'
+                 else (SERVE_KERNELS, SERVE_KERNELS_INT8))
+    if min(launches[k] for k in ran) <= 0 or any(launches[k] for k in idle):
+        raise AssertionError(f'{kv_cache_dtype} serving must launch only '
+                             f'{ran}, each at least once: {launches}')
+    return out, launches, reqs
 
-    # Repeated greedy prompt, alone both times: the same tokens.
+
+def _serve_repeat_and_rates(url: str, vocab: int, rng, reqs, out,
+                            kv_cache_dtype: str) -> dict:
+    """A repeated greedy prompt gives the same tokens; prefill and decode
+    tokens/s over HTTP."""
     rep = reqs[1]
     first = _post(url + '/generate', rep)['tokens'][0]
     second = _post(url + '/generate', rep)['tokens'][0]
     if first != second:
         raise AssertionError(f'greedy repeat differs: {first} {second}')
-    log(f'serve: repeated greedy prompt identical ({len(first)} tokens; '
-        f'equal to its burst completion: {first == out[1]})')
-
+    log(f'serve[{kv_cache_dtype}]: repeated greedy prompt identical '
+        f'({len(first)} tokens; equal to its burst completion: '
+        f'{first == out[1]})')
     # Prefill throughput: one 3000-token prompt, time to its one token.
     long_req = dict(prompt_ids=[rng.randint(0, vocab, 3000).tolist()],
                     max_new_tokens=1)
@@ -552,15 +668,29 @@ def phase_serve(dev) -> dict:
     _post(url + '/generate', dict(prompt_ids=batch, max_new_tokens=33))
     t2 = time.perf_counter()
     decode_tps = 8 * 32 / ((t2 - t1) - (t1 - t0))
-    log(f'serve: prefill {prefill_tps:.1f} tokens/s (one 3000-token '
-        f'prompt over HTTP, first token included); decode '
+    log(f'serve[{kv_cache_dtype}]: prefill {prefill_tps:.1f} tokens/s (one '
+        f'3000-token prompt over HTTP, first token included); decode '
         f'{decode_tps:.1f} tokens/s at batch 8 (33- minus 1-token runs)')
+    return dict(prefill_tps=prefill_tps, decode_tps=decode_tps)
+
+
+def phase_serve(dev) -> dict:
+    """bf16 KV cache.  Returns the launches, the greedy completions, the
+    pools' bytes, and one 700-token prompt with its first decode step's
+    logits through the kernels (for serve_int8's readings)."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    srv, http_thread, url = _start_server(dev, 'auto')
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    rng = np.random.RandomState(3)
+    out, launches, reqs = _serve_main_path(url, vocab, rng, 'auto')
+    _serve_repeat_and_rates(url, vocab, rng, reqs, out, 'auto')
     srv.shutdown()
     http_thread.join(timeout=30)
 
     # First decode step of one request: kernels vs plain versions.
-    rid = eng.submit(rng.randint(0, vocab, 700).tolist(),
-                     engine_lib.SamplingConfig(max_new_tokens=4))
+    prompt = rng.randint(0, vocab, 700).tolist()
+    rid = eng.submit(prompt, engine_lib.SamplingConfig(max_new_tokens=4))
     while all(s is None for s in eng._slots):  # pylint: disable=protected-access
         eng._schedule_front()  # pylint: disable=protected-access
     fused = eng.decode_logits('fused').float()
@@ -577,7 +707,113 @@ def phase_serve(dev) -> dict:
         raise AssertionError('kernel logits disagree with the plain path')
     eng.cancel(rid)
     eng.step()
-    return launches
+    return dict(launches=launches, greedy=out[:len(GREEDY_LENS)],
+                pool_bytes=eng._cache.nbytes(),  # pylint: disable=protected-access
+                prompt=prompt, logits=fused[row].cpu())
+
+
+def first_step_logits(eng, prompts, kernel: str):
+    """Prefill `prompts` into free slots with `kernel` ('fused': the
+    kernels, 'xla': their plain versions), then run the first decode step
+    with it; returns (prefill logits at each prompt's last token, first
+    decode step logits), each [n, V] f32, and frees the slots."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    saved = eng.prefill_kernel
+    eng.prefill_kernel = kernel
+    try:
+        rids = [eng.submit(p, engine_lib.SamplingConfig(max_new_tokens=4))
+                for p in prompts]
+        slots = eng._slots  # pylint: disable=protected-access
+        while sum(s is not None for s in slots) < len(prompts):
+            eng._schedule_front()  # pylint: disable=protected-access
+        rows = [next(i for i, s in enumerate(slots)
+                     if s is not None and s.request_id == r) for r in rids]
+        prefill = eng._last[rows].float().clone()  # pylint: disable=protected-access
+        decode = eng.decode_logits(kernel)[rows].float()
+    finally:
+        eng.prefill_kernel = saved
+    for r in rids:
+        eng.cancel(r)
+    eng.step()
+    return prefill, decode
+
+
+def int8_logit_gaps(eng, prompts) -> list:
+    """The int8 serving path's logits through the kernels against the
+    plain versions, each prompt prefilled and decoded one step by each:
+    [(prefill gap, decode gap)] per prompt, each max |kernels - plain|
+    over max |plain| (inf where the kernels' logits are not finite);
+    and the kernels' first decode step logits [n, V]."""
+    got = first_step_logits(eng, prompts, 'fused')
+    want = first_step_logits(eng, prompts, 'xla')
+    gaps = []
+    for i in range(len(prompts)):
+        pair = []
+        for g, w in zip(got, want):
+            ok = bool(torch.isfinite(g[i]).all())
+            pair.append((g[i] - w[i]).abs().max().item()
+                        / w[i].abs().max().item() if ok else float('inf'))
+        gaps.append(tuple(pair))
+    return gaps, got[1]
+
+
+# Prompts of the int8 logits check: one chunk, several chunks, the
+# longest prompt of the burst (scripts/int8_faults.py reads the same).
+INT8_CHECK_LENS = (40, 1300, 3000)
+
+
+def int8_check_prompts(vocab: int) -> list:
+    rng = np.random.RandomState(4)
+    return [rng.randint(0, vocab, n).tolist() for n in INT8_CHECK_LENS]
+
+
+def phase_serve_int8(dev, bf16: dict) -> dict:
+    """int8 KV cache, after the bf16 server is freed: the same weights,
+    requests and checks as `phase_serve`, only the int8 branches may
+    launch; then the logits through the kernels against the plain
+    versions (limit INT8_LOGITS_REL_TOL), and readings against the bf16
+    phase."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv, http_thread, url = _start_server(dev, 'int8')
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    pool_bytes = eng._cache.nbytes()  # pylint: disable=protected-access
+    log(f'serve[int8]: K/V pools {pool_bytes} bytes (int8 with f32 scales) '
+        f'against {bf16["pool_bytes"]} bf16, ratio '
+        f'{pool_bytes / bf16["pool_bytes"]:.4f}')
+    rng = np.random.RandomState(3)
+    out, launches, reqs = _serve_main_path(url, vocab, rng, 'int8')
+    rates = _serve_repeat_and_rates(url, vocab, rng, reqs, out, 'int8')
+    srv.shutdown()
+    http_thread.join(timeout=30)
+    greedy = out[:len(GREEDY_LENS)]
+    agree = np.mean([a == b for x, y in zip(greedy, bf16['greedy'])
+                     for a, b in zip(x, y)])
+    prompts = [bf16['prompt']] + int8_check_prompts(vocab)
+    gaps, fused = int8_logit_gaps(eng, prompts)
+    lens = [len(p) for p in prompts]
+    log(f'serve[int8]: logits through the int8 kernels against the int8 '
+        f'plain versions, (prefill, first decode step) gap over max '
+        f'|logit| for prompts of {lens} tokens: '
+        f'{[(round(a, 5), round(b, 5)) for a, b in gaps]} (limit '
+        f'{INT8_LOGITS_REL_TOL})')
+    worst = max(max(g) for g in gaps)
+    if not worst <= INT8_LOGITS_REL_TOL:
+        raise AssertionError('int8 kernel logits disagree with the plain '
+                             'path')
+    # Readings only: the int8 cache against the bf16 cache.
+    int8_logits = fused[0].cpu()
+    ref = bf16['logits']
+    gap = (int8_logits - ref).abs().max().item() / ref.abs().max().item()
+    log(f'serve[int8]: reading, first decode step logits of the same '
+        f'700-token prompt, int8 cache against bf16 cache: max abs diff '
+        f'over max |logit| {gap:.5f}, argmax equal '
+        f'{int(int8_logits.argmax()) == int(ref.argmax())}; greedy tokens '
+        f'equal to the bf16 phase at the same position: {agree:.4f} of '
+        f'{len(GREEDY_LENS) * SERVE_NEW}')
+    return dict(launches=launches, gaps=gaps, pool_bytes=pool_bytes,
+                bf16_gap=gap, greedy_agree=float(agree), **rates)
 
 
 def _launch_counts() -> dict:
@@ -585,6 +821,8 @@ def _launch_counts() -> dict:
     from skypilot_tpu_torch.ops import paged_attention as pa
     from skypilot_tpu_torch.ops import ragged_prefill as rp
     return {'paged_decode': pa.launches, 'ragged_prefill': rp.launches,
+            'paged_decode_int8': pa.launches_int8,
+            'ragged_prefill_int8': rp.launches_int8,
             'flash_fwd': fa.fwd_launches, 'flash_bwd_dq': fa.dq_launches,
             'flash_bwd_dkv': fa.dkv_launches}
 
@@ -594,6 +832,7 @@ def _reset_launch_counts() -> None:
     from skypilot_tpu_torch.ops import paged_attention as pa
     from skypilot_tpu_torch.ops import ragged_prefill as rp
     pa.launches = rp.launches = 0
+    pa.launches_int8 = rp.launches_int8 = 0
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 
@@ -656,7 +895,8 @@ def phase_train(dev) -> dict:
     launches = _launch_counts()
     peak = metrics['peak_memory_bytes'] / 2**30
     L, n = TRAIN_LAYERS, TRAIN_STEPS
-    want = {'paged_decode': 0, 'ragged_prefill': 0, 'flash_fwd': 2 * L * n,
+    want = {'paged_decode': 0, 'ragged_prefill': 0, 'paged_decode_int8': 0,
+            'ragged_prefill_int8': 0, 'flash_fwd': 2 * L * n,
             'flash_bwd_dq': L * n, 'flash_bwd_dkv': L * n}
     log(f'train: llama3-8b widths, {L} layers, batch {TRAIN_BATCH} x seq '
         f'{TRAIN_SEQ}, {n} steps in {wall:.1f}s (model init included); '
@@ -708,7 +948,11 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(dev)
     kernels.update(phase_flash_kernels(dev))
-    launches = phase_serve(dev)
+    bf16 = phase_serve(dev)
+    launches = dict(bf16['launches'])
+    int8 = phase_serve_int8(dev, bf16)
+    launches.update({k: int8['launches'][k] for k in SERVE_KERNELS_INT8})
+    del bf16, int8
     launches.update({k: v for k, v in phase_train(dev).items()
                      if k.startswith('flash')})
     entries = []
@@ -716,6 +960,10 @@ def main() -> int:
             ('paged_decode', 'paged_decode',
              'skypilot_tpu/ops/paged_attention.py:56'),
             ('ragged_prefill', 'ragged_prefill',
+             'skypilot_tpu/ops/ragged_prefill.py:61'),
+            ('paged_decode_int8', 'paged_decode',
+             'skypilot_tpu/ops/paged_attention.py:56'),
+            ('ragged_prefill_int8', 'ragged_prefill',
              'skypilot_tpu/ops/ragged_prefill.py:61'),
             ('flash_fwd', 'flash_fwd',
              'skypilot_tpu/ops/flash_attention.py:165'),
@@ -727,6 +975,7 @@ def main() -> int:
             name=name, route='cuda',
             source=f'skypilot_tpu_torch/csrc/{src}.cu',
             replaces=replaces, launches=launches[name],
+            **({'branch': 'quant'} if name.endswith('_int8') else {}),
             **kernels[name]))
     log(f'card: {card}')
     log(json.dumps({'kernels': entries}))

@@ -1,7 +1,8 @@
 // Ragged chunked-prefill attention for Hopper (sm_90a), CUDA C++.
 //
 // Replaces skypilot_tpu/ops/ragged_prefill.py:_prefill_kernel_body, the
-// Pallas kernel behind _ragged_prefill_impl.  Same contract:
+// Pallas kernel behind _ragged_prefill_impl, both its branches.  Same
+// contract:
 //   q        [B, H, S, d]        chunk queries; query i sits at cache
 //                                position base[b] + i
 //   cache    [B, kvh, L, d]      contiguous K and V caches
@@ -9,7 +10,12 @@
 //                                contiguous prefill cache)
 //   base     [B] int32           each row's cache-cursor base
 //   kv_mask  [B, L] uint8        validity of each cache position
-//   out      [B, S, H, d]        in the cache's dtype
+//   out      [B, S, H, d]        in q's dtype
+// The quant branch (ragged_prefill_int8_launch) reads int8 K/V caches
+// with f32 scale caches [B, kvh, L, 1], as the Pallas kernel's does: the
+// key scale multiplies each score column after q.k and `scale`, the
+// value scale weighs p in the PV product only, and the denominator l
+// sums the unscaled p.
 // Visibility is computed here, as the Pallas kernel does: with
 // qpos = base[b] + (r mod S) and kv_pos = table[b, j] * ps + col, a
 // column is kept when kv_pos <= qpos, kv_pos >= qpos - window + 1 (with a
@@ -36,6 +42,13 @@
 // lives in shared memory, rescaled by each row's correction factor
 // before the next tile's PV product is added.  Hopper's wgmma and TMA,
 // and a register-resident accumulator, are the next steps.
+// The quant branch stages each int8 K/V tile converted to q's 16-bit
+// type in shared memory (exact: |x| <= 127 < 2^8 fits bf16's 8-bit
+// significand), so the same WMMA products run on it; the key scales of
+// the tile's 64 columns ride in shared memory beside the positions, and
+// the value scales are folded into p before p is rounded to 16 bits for
+// the PV product (one rounding of p * vs, where the float branch rounds
+// p).  No float copy of the cache is written to device memory.
 // Edge semantics follow the reference: masked scores are -1e30, a row's
 // output is acc / l with l == 0 guarded to a zero output.  One
 // difference, on no row the serving path produces: a row that sees no
@@ -46,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,28 +95,45 @@ constexpr size_t mma_smem_bytes() {
          static_cast<size_t>(kBR) * (D + 4) * 4;
 }
 
-// Copy a [64, D] tile of 16-bit rows into shared memory, 16 bytes a
-// thread-step; `src(r)` is row r's global address or nullptr for a zero
-// row.
-template <typename T, int D, typename RowFn>
+__device__ __forceinline__ float int8_to_f(int8_t x) {
+  return static_cast<float>(x);
+}
+
+// Copy a [64, D] tile of rows of SRC (T, or int8_t converted to T on
+// the way: exact for |x| <= 127) into shared memory as T, 16 bytes
+// written a thread-step; `src(r)` is row r's global address or nullptr
+// for a zero row.
+template <typename T, int D, typename SRC, typename RowFn>
 __device__ __forceinline__ void load_tile(T* dst, RowFn src, int tid) {
   constexpr int kVec = 8;                    // 16-bit elements per uint4
   constexpr int kPerRow = D / kVec;
   for (int i = tid; i < kBR * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
-    const T* row = src(r);
+    const SRC* row = src(r);
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (row != nullptr) v = *reinterpret_cast<const uint4*>(row + c);
+    if constexpr (std::is_same<SRC, int8_t>::value) {
+      if (row != nullptr) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(row + c);
+        const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+        T* t = reinterpret_cast<T*>(&v);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) t[e] = from_f<T>(int8_to_f(x[e]));
+      }
+    } else {
+      if (row != nullptr) v = *reinterpret_cast<const uint4*>(row + c);
+    }
     *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = v;
   }
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 __global__ void __launch_bounds__(kThreads)
     ragged_prefill_mma_kernel(const T* __restrict__ q,
-                              const T* __restrict__ kc,
-                              const T* __restrict__ vc,
+                              const KT* __restrict__ kc,
+                              const KT* __restrict__ vc,
+                              const float* __restrict__ ksc,
+                              const float* __restrict__ vsc,
                               const int* __restrict__ table,
                               const int* __restrict__ base,
                               const uint8_t* __restrict__ kv_mask,
@@ -109,6 +141,7 @@ __global__ void __launch_bounds__(kThreads)
                               int L, int n_read, int ps, int window,
                               float scale) {
   using namespace nvcuda;
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int LD = D + 8;                  // 16-bit tile row stride
   constexpr int LO = D + 4;                  // f32 accumulator row stride
   constexpr int HALF = D / 2;                // output columns per lane
@@ -121,6 +154,8 @@ __global__ void __launch_bounds__(kThreads)
   float* Os = reinterpret_cast<float*>(Ps + kBR * kLdP);
   __shared__ int col_pos[kBC];
   __shared__ uint8_t col_ok[kBC];
+  __shared__ float col_ks[kBC];  // quant: the columns' key and value
+  __shared__ float col_vs[kBC];  // scales (0 past the walk)
 
   const int b = blockIdx.x / kvh;
   const int h = blockIdx.x % kvh;
@@ -133,7 +168,7 @@ __global__ void __launch_bounds__(kThreads)
   const int bs = base[b];
   const int* trow = table + static_cast<size_t>(b) * n_read;
 
-  load_tile<T, D>(Qs, [&](int r) -> const T* {
+  load_tile<T, D, T>(Qs, [&](int r) -> const T* {
     const int row = r0 + r;
     if (row >= GS) return nullptr;
     return q + ((static_cast<size_t>(b) * H + h * G + row / S) * S +
@@ -183,16 +218,23 @@ __global__ void __launch_bounds__(kThreads)
       col_ok[tid] = ok;
     }
     const size_t head_off = (static_cast<size_t>(b) * kvh + h) * L;
+    if constexpr (kQuant) {
+      if (tid < kBC) {
+        const int pos = col_pos[tid];
+        col_ks[tid] = pos >= 0 ? ksc[head_off + pos] : 0.f;
+        col_vs[tid] = pos >= 0 ? vsc[head_off + pos] : 0.f;
+      }
+    }
     auto cache_row = [&](int c) -> size_t {
       const int j = j0 + c / ps;
       if (j >= n_read) return ~static_cast<size_t>(0);
       return (head_off + trow[j] * ps + c % ps) * D;
     };
-    load_tile<T, D>(Ks, [&](int c) -> const T* {
+    load_tile<T, D, KT>(Ks, [&](int c) -> const KT* {
       const size_t off = cache_row(c);
       return off == ~static_cast<size_t>(0) ? nullptr : kc + off;
     }, tid);
-    load_tile<T, D>(Vs, [&](int c) -> const T* {
+    load_tile<T, D, KT>(Vs, [&](int c) -> const KT* {
       const size_t off = cache_row(c);
       return off == ~static_cast<size_t>(0) ? nullptr : vc + off;
     }, tid);
@@ -227,7 +269,9 @@ __global__ void __launch_bounds__(kThreads)
         const int pos = col_pos[col];
         const bool keep = pos >= 0 && col_ok[col] && pos <= my_qpos &&
                           (window <= 0 || pos >= my_qpos - window + 1);
-        const float sc = keep ? srow[c] * scale : kNegInf;
+        float sc = srow[c] * scale;
+        if constexpr (kQuant) sc *= col_ks[col];
+        sc = keep ? sc : kNegInf;
         srow[c] = sc;
         m_loc = fmaxf(m_loc, sc);
       }
@@ -240,7 +284,8 @@ __global__ void __launch_bounds__(kThreads)
         const float p =
             col_pos[half * 32 + c] >= 0 ? expf(srow[c] - m_new) : 0.f;
         psum += p;
-        prow[c] = from_f<T>(p);
+        // The value scale weighs p in PV only; l took p unscaled.
+        prow[c] = from_f<T>(kQuant ? p * col_vs[half * 32 + c] : p);
       }
       psum += __shfl_xor_sync(0xffffffffu, psum, 1);
       l = corr * l + psum;
@@ -281,43 +326,70 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
-                       const int* table, const int* base,
-                       const uint8_t* kv_mask, void* out, int B, int H, int S,
-                       int kvh, int L, int n_read, int ps, int window,
-                       float scale, cudaStream_t stream) {
+                       const float* ksc, const float* vsc, const int* table,
+                       const int* base, const uint8_t* kv_mask, void* out,
+                       int B, int H, int S, int kvh, int L, int n_read,
+                       int ps, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ragged_prefill_mma_kernel<T, D>,
+        ragged_prefill_mma_kernel<T, KT, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int G = H / kvh;
   const dim3 grid(B * kvh, (G * S + kBR - 1) / kBR);
-  ragged_prefill_mma_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), table, base, kv_mask, static_cast<T*>(out),
-      H, S, kvh, L, n_read, ps, window, scale);
+  ragged_prefill_mma_kernel<T, KT, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(kc),
+      static_cast<const KT*>(vc), ksc, vsc, table, base, kv_mask,
+      static_cast<T*>(out), H, S, kvh, L, n_read, ps, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kQuant>
 cudaError_t launch_d(const void* q, const void* kc, const void* vc,
-                     const int* table, const int* base,
-                     const uint8_t* kv_mask, void* out, int B, int H, int S,
-                     int d, int kvh, int L, int n_read, int ps, int window,
-                     float scale, cudaStream_t stream) {
+                     const float* ksc, const float* vsc, const int* table,
+                     const int* base, const uint8_t* kv_mask, void* out,
+                     int B, int H, int S, int d, int kvh, int L, int n_read,
+                     int ps, int window, float scale, cudaStream_t stream) {
+  using KT = typename std::conditional<kQuant, int8_t, T>::type;
   switch (d) {
     case 64:
-      return launch_mma<T, 64>(q, kc, vc, table, base, kv_mask, out, B, H,
-                               S, kvh, L, n_read, ps, window, scale, stream);
+      return launch_mma<T, KT, 64>(q, kc, vc, ksc, vsc, table, base, kv_mask,
+                                   out, B, H, S, kvh, L, n_read, ps, window,
+                                   scale, stream);
     case 128:
-      return launch_mma<T, 128>(q, kc, vc, table, base, kv_mask, out, B, H,
-                                S, kvh, L, n_read, ps, window, scale, stream);
+      return launch_mma<T, KT, 128>(q, kc, vc, ksc, vsc, table, base,
+                                    kv_mask, out, B, H, S, kvh, L, n_read,
+                                    ps, window, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kQuant>
+int launch(const void* q, const void* kc, const void* vc, const float* ksc,
+           const float* vsc, const int* table, const int* base,
+           const uint8_t* kv_mask, void* out, int B, int H, int S, int d,
+           int kvh, int L, int n_read, int ps, int window, float scale,
+           int dtype, void* stream) {
+  if (B == 0 || S == 0) return cudaSuccess;
+  if (ps <= 0 || ps > kBC || kBC % ps != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1:
+      return launch_d<__nv_bfloat16, kQuant>(q, kc, vc, ksc, vsc, table,
+                                             base, kv_mask, out, B, H, S, d,
+                                             kvh, L, n_read, ps, window,
+                                             scale, st);
+    case 2:
+      return launch_d<__half, kQuant>(q, kc, vc, ksc, vsc, table, base,
+                                      kv_mask, out, B, H, S, d, kvh, L,
+                                      n_read, ps, window, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -325,9 +397,10 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc,
 
 }  // namespace
 
-// dtype: 1 bfloat16, 2 float16; window <= 0 means none.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
-// dtype, an unsupported head dim or a page size that does not divide 64).
+// dtype (of q, the cache and out): 1 bfloat16, 2 float16; window <= 0
+// means none.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for another dtype, an unsupported head dim or a
+// page size that does not divide 64).
 extern "C" int ragged_prefill_launch(const void* q, const void* kc,
                                      const void* vc, const int* table,
                                      const int* base, const uint8_t* kv_mask,
@@ -335,18 +408,19 @@ extern "C" int ragged_prefill_launch(const void* q, const void* kc,
                                      int kvh, int L, int n_read, int ps,
                                      int window, float scale, int dtype,
                                      void* stream) {
-  if (B == 0 || S == 0) return cudaSuccess;
-  if (ps <= 0 || ps > kBC || kBC % ps != 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 1:
-      return launch_d<__nv_bfloat16>(q, kc, vc, table, base, kv_mask, out, B,
-                                     H, S, d, kvh, L, n_read, ps, window,
-                                     scale, st);
-    case 2:
-      return launch_d<__half>(q, kc, vc, table, base, kv_mask, out, B, H, S,
-                              d, kvh, L, n_read, ps, window, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch<false>(q, kc, vc, nullptr, nullptr, table, base, kv_mask,
+                       out, B, H, S, d, kvh, L, n_read, ps, window, scale,
+                       dtype, stream);
+}
+
+// The quant branch: int8 caches kc/vc with f32 scale caches ksc/vsc
+// [B, kvh, L, 1]; dtype is q's and out's, as above.
+extern "C" int ragged_prefill_int8_launch(
+    const void* q, const void* kc, const void* vc, const float* ksc,
+    const float* vsc, const int* table, const int* base,
+    const uint8_t* kv_mask, void* out, int B, int H, int S, int d, int kvh,
+    int L, int n_read, int ps, int window, float scale, int dtype,
+    void* stream) {
+  return launch<true>(q, kc, vc, ksc, vsc, table, base, kv_mask, out, B, H,
+                      S, d, kvh, L, n_read, ps, window, scale, dtype, stream);
 }

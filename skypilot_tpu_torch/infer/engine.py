@@ -11,6 +11,10 @@ skypilot_tpu/infer/engine.py:ContinuousBatchingEngine:
     prefilled in chunks of `prefill_chunk` tokens, one chunk per tick,
     into a private batch-1 contiguous cache at a global cursor; at the
     end the paged insert scatters that cache into the slot's pages;
+  - with kv_cache_dtype='int8' the pools (and the prefill cache) hold
+    int8 K/V with f32 per-(kv head, position) scale pools beside them,
+    read through the kernels' int8 branches: half the bytes of a bf16
+    cache, so twice the context or the slots on one card;
   - per-slot temperature, top_k and top_p ride the step as [B] vectors,
     and each sampled row draws from its own torch.Generator seeded from
     (request seed, generated index) - independent of batch companions,
@@ -23,7 +27,7 @@ on the CPU is a ValueError.
 
 Not ported yet (later slices): the async pipeline, speculation, mixed
 prefill budgets, disaggregated handoff, live migration, the host-RAM
-tier, prefix sharing, int8 caches, recovery, metrics and traces.
+tier, prefix sharing, recovery, metrics and traces.
 
 Thread model: submit()/cancel()/wait() are thread-safe; step() must be
 driven by ONE thread (the server's decode loop).
@@ -181,14 +185,19 @@ def resolve_kernels(decode_kernel: str = 'auto',
 def paged_insert(cache: PagedCache, cache1: PrefillCache,
                  table_row: np.ndarray, slot: int) -> None:
     """Scatter the batch-1 contiguous prefill cache [L, 1, kvh, S, d]
-    into the slot's pool pages [L, n_pages, kvh, ps, d] (in place) and
-    write its block-table row.  `table_row` [pps] lists the slot's pages
-    and is 0 (the null page) past them; the null page is left as it is."""
+    into the slot's pool pages [L, n_pages, kvh, ps, d] (in place), the
+    scale siblings [.., 1] of an int8 cache likewise, and write its
+    block-table row.  `table_row` [pps] lists the slot's pages and is 0
+    (the null page) past them; the null page is left as it is."""
     ps = cache.key.shape[3]
     n_used = int(np.count_nonzero(table_row))
     phys = torch.as_tensor(table_row[:n_used], dtype=torch.long,
                            device=cache.key.device)
-    for pool, src in ((cache.key, cache1.key), (cache.value, cache1.value)):
+    pairs = [(cache.key, cache1.key), (cache.value, cache1.value)]
+    if cache.key_scale is not None:
+        pairs += [(cache.key_scale, cache1.key_scale),
+                  (cache.value_scale, cache1.value_scale)]
+    for pool, src in pairs:
         L, _, kvh, s, d = src.shape
         content = src[:, 0].reshape(L, kvh, s // ps, ps, d)
         pool[:, phys] = content[:, :, :n_used].transpose(1, 2).to(pool.dtype)
@@ -259,6 +268,7 @@ class ContinuousBatchingEngine:
                  seed: int = 0,
                  decode_kernel: str = 'auto',
                  prefill_kernel: str = 'auto',
+                 kv_cache_dtype: str = 'auto',
                  device: DeviceLike = 'cuda') -> None:
         self.device = resolve_device(device)
         if page_size <= 0 or page_size & (page_size - 1):
@@ -270,6 +280,7 @@ class ContinuousBatchingEngine:
                              f'prefill_bucket ({prefill_bucket})')
         overrides = dict(model_overrides or {})
         overrides.setdefault('param_dtype', param_dtype)
+        overrides.setdefault('kv_cache_dtype', kv_cache_dtype)
         if max_seq_len is not None:
             overrides['max_seq_len'] = max_seq_len
         peek = models_lib.get_config(model, **overrides)
@@ -303,6 +314,7 @@ class ContinuousBatchingEngine:
                                   page_size=page_size)
         self.decode_kernel = kernels['decode']
         self.prefill_kernel = kernels['prefill']
+        self.kv_cache_dtype = self.config.kv_cache_dtype
         self._model_name = str(model)
         self.n_slots = n_slots
         self.max_seq_len = self.config.max_seq_len

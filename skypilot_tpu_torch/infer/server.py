@@ -19,6 +19,8 @@ budget come later).  Serving random weights is refused unless
 
 Run: python -m skypilot_tpu_torch.infer.server --model llama3-8b \
          --page-size 16 --prefill-chunk 512 --allow-random-weights
+     (add --kv-cache-dtype int8 for the int8 KV cache; --device cpu runs
+     the kernels' plain versions on the CPU)
 """
 from __future__ import annotations
 
@@ -67,6 +69,7 @@ class InferenceServer:
                  allow_random_weights: bool = False,
                  decode_kernel: str = 'auto',
                  prefill_kernel: str = 'auto',
+                 kv_cache_dtype: str = 'auto',
                  default_deadline_s: float = 600.0,
                  max_queue_depth: Optional[int] = None,
                  device: DeviceLike = 'cuda') -> None:
@@ -80,7 +83,8 @@ class InferenceServer:
             param_dtype=param_dtype, prefill_chunk=prefill_chunk,
             kv_read_bucket=kv_read_bucket, page_size=page_size,
             max_pages=max_pages, decode_kernel=decode_kernel,
-            prefill_kernel=prefill_kernel, device=device)
+            prefill_kernel=prefill_kernel, kv_cache_dtype=kv_cache_dtype,
+            device=device)
         self.model_name = model
         self.default_deadline_s = float(default_deadline_s)
         self.max_queue_depth = (max_queue_depth if max_queue_depth
@@ -243,7 +247,8 @@ class InferenceServer:
             self._server = None
 
 
-def main() -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """The server CLI's flags."""
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='llama-tiny')
     parser.add_argument('--port', type=int, default=8000)
@@ -265,12 +270,22 @@ def main() -> None:
                         choices=['auto', 'fused', 'xla'],
                         help="'fused' = the CUDA ragged-prefill kernel, "
                              "'xla' = its plain PyTorch version.")
+    parser.add_argument('--kv-cache-dtype', default='auto',
+                        choices=['auto', 'int8'],
+                        help="'int8' = int8 K/V with f32 per-(kv head, "
+                             "position) scales (half a bf16 cache's "
+                             "bytes); 'auto' = the model dtype.")
     parser.add_argument('--model-overrides', default=None,
                         help='JSON dict of model-config overrides.')
     parser.add_argument('--allow-random-weights', action='store_true',
                         help='Serve randomly initialized weights '
                              '(tests/dev; no checkpoint loader yet).')
     parser.add_argument('--device', default='cuda')
+    return parser
+
+
+def main() -> None:
+    parser = build_parser()
     args = parser.parse_args()
     overrides = None
     if args.model_overrides:
@@ -287,7 +302,8 @@ def main() -> None:
         max_pages=args.max_pages,
         allow_random_weights=args.allow_random_weights,
         decode_kernel=args.decode_kernel,
-        prefill_kernel=args.prefill_kernel, device=args.device)
+        prefill_kernel=args.prefill_kernel,
+        kv_cache_dtype=args.kv_cache_dtype, device=args.device)
     logger.info(f'engine ready in {time.perf_counter() - t0:.1f}s')
     server.serve_forever()
 

@@ -16,7 +16,11 @@ says which path runs (`PrefillCache`: the batch-1 chunked prefill at a
 global cursor; `PagedCache`: one-token slot decode against the page
 pool), `kernel` picks the CUDA kernel ('fused') or the plain PyTorch
 version ('xla', the reference's name for its oracle path), and
-`read_len` caps the cache reads.  Caches are updated in place.  The
+`read_len` caps the cache reads.  Caches are updated in place.  With
+`kv_cache_dtype='int8'` both caches hold int8 K/V rows with f32 absmax
+scales per (kv head, position) beside them, quantized on write and
+read through the kernels' int8 branches (`ops/grouped_attention.py`
+`quantize_int8_rows`, `int8_grouped_attention`).  The
 training forward (`Llama.train_forward`) takes no cache; it reruns each
 block in the backward pass (`remat`, through torch.utils.checkpoint)
 as the reference's `nothing_saveable` policy does.
@@ -33,6 +37,7 @@ from torch import nn
 from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.ops import flash_attention as fa
+from skypilot_tpu_torch.ops import grouped_attention as ga
 from skypilot_tpu_torch.ops import paged_attention as pa
 from skypilot_tpu_torch.ops import ragged_prefill as rp
 
@@ -70,6 +75,9 @@ class LlamaConfig:
     # hd] pages, page 0 the reserved null page.
     kv_page_size: int = 0
     kv_n_pages: int = 0
+    # KV cache storage: 'auto' = `dtype`, 'int8' = int8 rows with f32
+    # per-(kv head, position) absmax scales in sibling tensors.
+    kv_cache_dtype: str = 'auto'
     # Training forward: rerun each block in the backward pass ('nothing'
     # is saved but the block's input, the reference's default policy);
     # attention through the flash kernels or the plain `mha_reference`.
@@ -78,6 +86,9 @@ class LlamaConfig:
     attention_impl: str = 'flash'
 
     def __post_init__(self):
+        if self.kv_cache_dtype not in ('auto', 'int8'):
+            raise ValueError(f"kv_cache_dtype must be 'auto' or 'int8', "
+                             f'got {self.kv_cache_dtype!r}')
         object.__setattr__(self, 'dtype', as_dtype(self.dtype))
         object.__setattr__(self, 'param_dtype', as_dtype(self.param_dtype))
 
@@ -116,12 +127,31 @@ def get_config(name: str, **overrides: Any) -> LlamaConfig:
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
+def _kv_zeros(cfg: LlamaConfig, shape: Tuple[int, ...],
+              device: torch.device):
+    """(key, value, key_scale, value_scale) zeros of one cache: K/V of
+    `shape` in cfg.dtype, or int8 with f32 scales of shape[:-1] + (1,)
+    (None for a float cache)."""
+    if cfg.kv_cache_dtype != 'int8':
+        return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+                torch.zeros(shape, dtype=cfg.dtype, device=device),
+                None, None)
+    sshape = shape[:-1] + (1,)
+    return (torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device))
+
+
 @dataclasses.dataclass
 class PrefillCache:
     """Contiguous chunked-prefill cache, [L, B, kvh, max_len, hd] each,
-    written at the global `cursor` (advanced once per forward)."""
+    written at the global `cursor` (advanced once per forward); an int8
+    cache has f32 scales [L, B, kvh, max_len, 1] beside K and V."""
     key: torch.Tensor
     value: torch.Tensor
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
     cursor: int = 0
 
     @classmethod
@@ -129,18 +159,20 @@ class PrefillCache:
               device: torch.device) -> 'PrefillCache':
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.max_seq_len,
                  cfg.head_dim)
-        return cls(torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   torch.zeros(shape, dtype=cfg.dtype, device=device))
+        return cls(*_kv_zeros(cfg, shape, device))
 
 
 @dataclasses.dataclass
 class PagedCache:
     """Paged decode cache: K/V pools [L, n_pages, kvh, ps, hd] shared by
     every slot, and each slot's block table [B, max_len // ps] int32
-    (page 0 = the reserved null page)."""
+    (page 0 = the reserved null page); an int8 cache has f32 scale
+    pools [L, n_pages, kvh, ps, 1] beside K and V."""
     key: torch.Tensor
     value: torch.Tensor
     table: torch.Tensor
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def zeros(cls, cfg: LlamaConfig, batch: int,
@@ -153,10 +185,26 @@ class PagedCache:
             raise ValueError(f'kv_n_pages must be >= 2 (page 0 is the '
                              f'reserved null page), got {n_pages}')
         shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, ps, cfg.head_dim)
-        return cls(torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   torch.zeros(shape, dtype=cfg.dtype, device=device),
+        key, value, key_scale, value_scale = _kv_zeros(cfg, shape, device)
+        return cls(key, value,
                    torch.zeros((batch, cfg.max_seq_len // ps),
-                               dtype=torch.int32, device=device))
+                               dtype=torch.int32, device=device),
+                   key_scale, value_scale)
+
+    def nbytes(self) -> int:
+        """Bytes of the K/V pools and their scale pools."""
+        return sum(t.nbytes for t in (self.key, self.value, self.key_scale,
+                                      self.value_scale) if t is not None)
+
+
+def _layer_scales(cache: Union[PrefillCache, PagedCache], layer: int
+                  ) -> Dict[str, Optional[torch.Tensor]]:
+    """The kernels' key_scale/value_scale arguments for one layer (None
+    for a float cache)."""
+    if cache.key_scale is None:
+        return dict(key_scale=None, value_scale=None)
+    return dict(key_scale=cache.key_scale[layer],
+                value_scale=cache.value_scale[layer])
 
 
 def resolve_kernel(kernel: str, device: torch.device) -> str:
@@ -222,16 +270,25 @@ def run_cached_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
     `cache.cursor`, then attend over the identity page walk of the
     cache with the causal mask against the cursor base.  Columns past
     the cursor + chunk are causally dead, so the page-rounded read
-    window is exact.  Returns [B, S, H, hd]."""
+    window is exact.  An int8 cache stores quantize_int8_rows of the
+    rotated K and of V, in cfg.dtype as the reference quantizes them.
+    Returns [B, S, H, hd]."""
     s, hd = q.shape[2], q.shape[3]
     idx = cache.cursor
-    cache.key[layer][:, :, idx:idx + s] = k.to(cfg.dtype)
-    cache.value[layer][:, :, idx:idx + s] = v.to(cfg.dtype)
+    k, v = k.to(cfg.dtype), v.to(cfg.dtype)
+    if cache.key_scale is not None:
+        k, ks = ga.quantize_int8_rows(k)
+        v, vs = ga.quantize_int8_rows(v)
+        cache.key_scale[layer][:, :, idx:idx + s] = ks
+        cache.value_scale[layer][:, :, idx:idx + s] = vs
+    cache.key[layer][:, :, idx:idx + s] = k
+    cache.value[layer][:, :, idx:idx + s] = v
     fn = (rp.ragged_prefill_attention if kernel == 'fused'
           else rp.ragged_prefill_attention_plain)
     return fn(q, cache.key[layer], cache.value[layer], plan.tbl, plan.base,
               plan.vis, scale=hd ** -0.5, probs_dtype=cfg.dtype,
-              page_size=cfg.kv_page_size, window=cfg.sliding_window)
+              page_size=cfg.kv_page_size, window=cfg.sliding_window,
+              **_layer_scales(cache, layer))
 
 
 class SlotPlan(NamedTuple):
@@ -273,19 +330,28 @@ def paged_slot_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
                          kernel: str) -> torch.Tensor:
     """One-token slot decode against the page pool (the reference's
     `_paged_slot_attention`, s == 1): write each row's K/V into its page,
-    then attend over the pages of `plan`.  Returns [B, 1, H, hd]."""
+    then attend over the pages of `plan`; an int8 cache stores
+    quantize_int8_rows of them, with their scales at the same slot of
+    the scale pools.  Returns [B, 1, H, hd]."""
     if q.shape[2] != 1:
         raise ValueError(f'paged slot decode takes one token per row, '
                          f'got {q.shape[2]}')
     hd = q.shape[3]
     pk = cache.key[layer]
     pv = cache.value[layer]
-    pk[plan.phys, :, plan.off, :] = k[:, :, 0, :].to(cfg.dtype)
-    pv[plan.phys, :, plan.off, :] = v[:, :, 0, :].to(cfg.dtype)
+    k, v = k[:, :, 0, :].to(cfg.dtype), v[:, :, 0, :].to(cfg.dtype)
+    scales = _layer_scales(cache, layer)
+    if cache.key_scale is not None:
+        k, ks = ga.quantize_int8_rows(k)
+        v, vs = ga.quantize_int8_rows(v)
+        scales['key_scale'][plan.phys, :, plan.off, :] = ks
+        scales['value_scale'][plan.phys, :, plan.off, :] = vs
+    pk[plan.phys, :, plan.off, :] = k
+    pv[plan.phys, :, plan.off, :] = v
     fn = (pa.paged_decode_attention if kernel == 'fused'
           else pa.paged_decode_attention_plain)
     return fn(q, pk, pv, plan.tbl, plan.mask, scale=hd ** -0.5,
-              probs_dtype=cfg.dtype)
+              probs_dtype=cfg.dtype, **scales)
 
 
 def _train_attention(cfg: LlamaConfig, *, kernel: str):

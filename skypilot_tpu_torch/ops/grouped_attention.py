@@ -1,19 +1,29 @@
 """Grouped-query attention that never broadcasts K/V to H heads.
 
-Port of skypilot_tpu/ops/grouped_attention.py (float caches only; the
-int8 helpers come with the int8 KV-cache slice).  These are the plain
+Port of skypilot_tpu/ops/grouped_attention.py.  These are the plain
 versions the CUDA kernels are held against: `gather_pages` assembles a
 row's pages into a contiguous view, `grouped_attention` runs the
 masked softmax with the G = H/kvh query heads that share a kv head
-folded into one contraction.
+folded into one contraction, `quantize_int8_rows` is the int8 KV
+cache's write, and `int8_grouped_attention` is its read as the two
+kernels compute it (int8 cast to f32, f32 dots, scales folded in).
+
+The reference's XLA int8 read (`quantized_grouped_attention`, exact
+int16 x int8 dots) is its fallback path, not a kernel's function, and
+is not ported: the kernels, and these plain versions, deviate from it
+by about 1e-3 in the logits.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
+_INT8_MAX = 127.0
+# Smallest absmax a row's scale is taken from: an all-zero row gets a
+# tiny positive scale, never 0.
+_SCALE_FLOOR = 1e-8
 
 
 def grouped_attention(q: torch.Tensor, keys: torch.Tensor,
@@ -55,3 +65,75 @@ def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     _, kvh, ps, d = pool.shape
     g = pool[table.reshape(-1).long()].reshape(b, n_read, kvh, ps, d)
     return g.permute(0, 2, 1, 3, 4).reshape(b, kvh, n_read * ps, d)
+
+
+def quantize_int8_rows(x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 absmax quantization over the last axis:
+    x [..., d] -> (q int8 [..., d], scale f32 [..., 1]), x ~= q * scale.
+    Bit for bit the reference's: in f32, scale = max(absmax, 1e-8) / 127,
+    q = round(x / scale) (a division, half to even), clipped to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True),
+                        min=_SCALE_FLOOR) / _INT8_MAX
+    q = torch.clamp(torch.round(xf / scale), -_INT8_MAX, _INT8_MAX)
+    return q.to(torch.int8), scale
+
+
+def check_int8_scales(keys: torch.Tensor, values: torch.Tensor,
+                      key_scale: Optional[torch.Tensor],
+                      value_scale: Optional[torch.Tensor],
+                      what: str) -> bool:
+    """Whether the cache is int8 (scales given); raises ValueError unless
+    both scales or neither are given and, with them, K/V are int8 and
+    each scale is f32 of K/V's shape with a last axis of 1."""
+    if (key_scale is None) != (value_scale is None):
+        raise ValueError(f'{what}: key_scale and value_scale must be '
+                         'passed together (int8 cache) or not at all')
+    if key_scale is None:
+        return False
+    if keys.dtype != torch.int8 or values.dtype != torch.int8:
+        raise ValueError(f'{what}: scales need int8 K/V, got '
+                         f'{keys.dtype}/{values.dtype}')
+    want = tuple(keys.shape[:-1]) + (1,)
+    for name, t in (('key_scale', key_scale), ('value_scale', value_scale)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want:
+            raise ValueError(f'{what}: {name} must be float32 {want}, got '
+                             f'{t.dtype} {tuple(t.shape)}')
+    return True
+
+
+def int8_grouped_attention(q: torch.Tensor, keys: torch.Tensor,
+                           values: torch.Tensor, key_scale: torch.Tensor,
+                           value_scale: torch.Tensor,
+                           mask: Optional[torch.Tensor], *, scale: float,
+                           probs_dtype: torch.dtype) -> torch.Tensor:
+    """Masked grouped attention over an int8 cache, as the paged-decode
+    and ragged-prefill kernels compute it (their quant branch).
+
+    q [B, H, Sq, dk]; keys/values [B, kvh, Sk, d] holding int8 values
+    (any dtype); key_scale/value_scale [B, kvh, Sk, 1] f32; mask as
+    `grouped_attention`.  In f32: scores (q . k) * scale * key_scale,
+    masked to -1e30; p = exp(score - max) and the denominator l sums
+    the unscaled p; the PV product takes p * value_scale; l == 0 gives
+    a zero output.  Returns [B, Sq, H, d] in probs_dtype.
+    """
+    b, h, sq, _ = q.shape
+    kvh = keys.shape[1]
+    if h % kvh:
+        raise ValueError(
+            f'query heads ({h}) not divisible by kv heads ({kvh})')
+    g = h // kvh
+    qg = q.float().reshape(b, kvh, g, sq, q.shape[-1])
+    scores = torch.einsum('bngqd,bnkd->bngqk', qg, keys.float()) * scale
+    scores = scores * key_scale.float()[:, :, None, None, :, 0]
+    if mask is not None:
+        scores = torch.where(mask[:, :, None], scores,
+                             scores.new_tensor(NEG_INF))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p * value_scale.float()[:, :, None, None, :, 0]
+    out = torch.einsum('bngqk,bnkd->bngqd', pv, values.float())
+    out = out / torch.where(l == 0, torch.ones_like(l), l)
+    return out.to(probs_dtype).reshape(b, h, sq, values.shape[-1]) \
+        .transpose(1, 2)

@@ -1,49 +1,69 @@
 """Paged decode attention: the CUDA kernel and its plain version.
 
 Port of skypilot_tpu/ops/paged_attention.py (single shard,
-`_paged_decode_attention_impl`; float pools).  `paged_decode_attention`
+`_paged_decode_attention_impl`), float pools and int8 pools with f32
+scale pools (the kernel's `quant` branch).  `paged_decode_attention`
 launches `csrc/paged_decode.cu` on CUDA tensors and takes the plain
 version (`paged_decode_attention_plain`: gather the pages, then
-`grouped_attention`) only for CPU tensors.  There is no fallback from
-one to the other: a CUDA tensor the kernel cannot take raises.
+`grouped_attention`, or `int8_grouped_attention` with scales) only for
+CPU tensors.  There is no fallback from one to the other: a CUDA tensor
+the kernel cannot take raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import grouped_attention as ga
 
-# Kernel launches since the count was last set to 0 (chip_smoke.py reads
-# and resets it around the serving run).
+# Kernel launches since the count was last set to 0, float pools and
+# int8 pools apart (chip_smoke.py reads and resets them around each
+# serving run).
 launches = 0
+launches_int8 = 0
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_PS = (8, 16, 32)
 # paged_decode_launch(pointers..., ints..., scale, dtype code, stream).
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# paged_decode_int8_launch: the same with the two scale pools after the
+# pools.
+_ARGTYPES_INT8 = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def paged_decode_attention_plain(q: torch.Tensor, page_key: torch.Tensor,
                                  page_value: torch.Tensor,
                                  table: torch.Tensor, mask: torch.Tensor,
-                                 *, scale: float,
-                                 probs_dtype: torch.dtype) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: gather, then grouped
-    attention.  Shapes as `paged_decode_attention`."""
+                                 *, scale: float, probs_dtype: torch.dtype,
+                                 key_scale: Optional[torch.Tensor] = None,
+                                 value_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: gather the pages (and the
+    scale pages), then grouped attention.  Shapes as
+    `paged_decode_attention`."""
     keys = ga.gather_pages(page_key, table)
     values = ga.gather_pages(page_value, table)
-    return ga.grouped_attention(q, keys, values, mask, scale=scale,
-                                probs_dtype=probs_dtype)
+    if key_scale is None:
+        return ga.grouped_attention(q, keys, values, mask, scale=scale,
+                                    probs_dtype=probs_dtype)
+    return ga.int8_grouped_attention(
+        q, keys, values, ga.gather_pages(key_scale, table),
+        ga.gather_pages(value_scale, table), mask, scale=scale,
+        probs_dtype=probs_dtype)
 
 
 def paged_decode_attention(q: torch.Tensor, page_key: torch.Tensor,
                            page_value: torch.Tensor, table: torch.Tensor,
                            mask: torch.Tensor, *, scale: float,
-                           probs_dtype: torch.dtype) -> torch.Tensor:
+                           probs_dtype: torch.dtype,
+                           key_scale: Optional[torch.Tensor] = None,
+                           value_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Decode attention straight from the paged KV pools.
 
     q:          [B, H, S, d] queries (S = 1 decode).
@@ -52,24 +72,32 @@ def paged_decode_attention(q: torch.Tensor, page_key: torch.Tensor,
                 page that unallocated table entries point at.
     table:      [B, n_read] int32 block table under the read window.
     mask:       bool [B, 1, S|1, n_read * page_size] visibility.
+    key_scale /
+    value_scale: [n_pages, kvh, page_size, 1] f32 absmax scale pools of
+                int8 pools (both or neither).
 
     Returns [B, S, H, d] in probs_dtype.
     """
+    quant = ga.check_int8_scales(page_key, page_value, key_scale,
+                                 value_scale, 'paged_decode_attention')
     if not q.is_cuda:
         return paged_decode_attention_plain(
             q, page_key, page_value, table, mask, scale=scale,
-            probs_dtype=probs_dtype)
+            probs_dtype=probs_dtype, key_scale=key_scale,
+            value_scale=value_scale)
     return _launch(q, page_key, page_value, table, mask, scale=scale,
-                   probs_dtype=probs_dtype)
+                   probs_dtype=probs_dtype,
+                   scales=(key_scale, value_scale) if quant else None)
 
 
-def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype):
-    global launches
+def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype,
+            scales):
+    global launches, launches_int8
     b, h, s, d = q.shape
     n_pages, kvh, ps, dp = page_key.shape
     n_read = table.shape[1]
     read_len = n_read * ps
-    tensors = (q, page_key, page_value, table, mask)
+    tensors = (q, page_key, page_value, table, mask) + (scales or ())
     if any(not t.is_cuda or t.device != q.device for t in tensors):
         raise ValueError('paged_decode_attention: every tensor must be on '
                          "q's CUDA device")
@@ -81,9 +109,12 @@ def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype):
         raise ValueError(f'paged_decode_attention kernel takes head_dim '
                          f'in {_SUPPORTED_D} and page_size in '
                          f'{_SUPPORTED_PS}, got {d} and {ps}')
-    if not (q.dtype == page_key.dtype == page_value.dtype == probs_dtype):
+    pool_dtype = q.dtype if scales is None else torch.int8
+    if not (q.dtype == probs_dtype and page_key.dtype == pool_dtype
+            and page_value.dtype == pool_dtype):
         raise ValueError('paged_decode_attention kernel needs q, pools and '
-                         'probs_dtype of one dtype, got '
+                         'probs_dtype of one dtype (int8 pools with '
+                         'scales), got '
                          f'{q.dtype}/{page_key.dtype}/{probs_dtype}')
     if table.dtype != torch.int32 or table.shape[0] != b:
         raise ValueError(f'table must be int32 [B, n_read], got '
@@ -92,19 +123,31 @@ def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype):
             or mask.shape[-1] != read_len:
         raise ValueError(f'mask must be bool [B, 1, S|1, {read_len}], '
                          f'got {mask.dtype} {tuple(mask.shape)}')
-    for name, t in (('q', q), ('page_key', page_key),
-                    ('page_value', page_value), ('table', table)):
+    named = [('q', q), ('page_key', page_key), ('page_value', page_value),
+             ('table', table)]
+    if scales is not None:
+        named += [('key_scale', scales[0]), ('value_scale', scales[1])]
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f'paged_decode_attention: {name} must be '
                              'contiguous')
     mask3 = mask[:, 0].expand(b, s, read_len).contiguous()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    fn = _build.launcher('paged_decode', _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), page_key.data_ptr(), page_value.data_ptr(),
-             table.data_ptr(), mask3.data_ptr(), out.data_ptr(), b, h, s, d,
-             kvh, ps, n_read, float(scale), _build.dtype_code(q.dtype),
-             stream)
-    _build.check(err, 'paged_decode_launch')
-    launches += 1
+    tail = (table.data_ptr(), mask3.data_ptr(), out.data_ptr(), b, h, s, d,
+            kvh, ps, n_read, float(scale), _build.dtype_code(q.dtype),
+            stream)
+    if scales is None:
+        fn = _build.launcher('paged_decode', _ARGTYPES)
+        err = fn(q.data_ptr(), page_key.data_ptr(), page_value.data_ptr(),
+                 *tail)
+        _build.check(err, 'paged_decode_launch')
+        launches += 1
+    else:
+        fn = _build.launcher('paged_decode', _ARGTYPES_INT8,
+                             'paged_decode_int8_launch')
+        err = fn(q.data_ptr(), page_key.data_ptr(), page_value.data_ptr(),
+                 scales[0].data_ptr(), scales[1].data_ptr(), *tail)
+        _build.check(err, 'paged_decode_int8_launch')
+        launches_int8 += 1
     return out

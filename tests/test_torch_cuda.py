@@ -21,7 +21,13 @@ A = attention of |V| (the same plain version on |values|):
   ragged prefill u * (|plain| + A) + 2^-12 * A  (the probabilities are
                                               rounded to bf16 before PV:
                                               |sum (p' - p) v| / l <= u * A)
-2^-12 * A covers the f32 sums taken in other orders.
+2^-12 * A covers the f32 sums taken in other orders.  The int8 branches
+(int8 pools quantized from random rows, f32 scales, q and out in bf16 or
+f32) hold to the same bounds against the plain int8 versions: the
+decode kernel converts int8 to f32 and rounds only its output; the
+prefill kernel stages int8 as bf16 (exact, |x| <= 127) and rounds
+p * value_scale to bf16 before PV, so |sum (p vs)' v - p vs v| / l <=
+u * A with A the attention of |V| at its scales.
 
 Flash attention (forward, dq, dk/dv; bf16/f16 only): against the plain
 versions run at f32 on the same values (the backward on the kernel's
@@ -37,6 +43,7 @@ import pytest
 import torch
 
 from skypilot_tpu_torch.ops import flash_attention as fa
+from skypilot_tpu_torch.ops import grouped_attention as ga
 from skypilot_tpu_torch.ops import paged_attention as pa
 from skypilot_tpu_torch.ops import ragged_prefill as rp
 
@@ -59,7 +66,11 @@ def _assert_within_rounding(got, plain, args, kw, *, probs_rounded):
         tol += U_BF16 * absv
     err = (got.float() - want).abs()
     assert torch.isfinite(got).all()
-    worst = (err / tol).max().item()
+    # An element with no bound (an exact zero, e.g. a query that sees one
+    # int8 column holding 0) must be exact.
+    ratio = torch.where(tol > 0, err / tol,
+                        torch.where(err > 0, float('inf'), 0.0))
+    worst = ratio.max().item()
     assert worst <= 1.0, (f'max |err| {err.max().item():.3e}, '
                           f'{worst:.2f} x its bound')
 
@@ -131,6 +142,50 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, h, kvh, d, ps, ctxs,
             dict(scale=d ** -0.5), probs_rounded=False)
 
 
+def _quantized(pool, poison_null):
+    """int8 pool and f32 scales from a float pool; with `poison_null` the
+    null page 0 holds 127 at a scale of 1e4, which the mask must hide."""
+    q8, sc = ga.quantize_int8_rows(pool)
+    if poison_null:
+        q8[0] = 127
+        sc[0] = 1e4
+    return q8, sc
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('h,kvh,d,ps,ctxs,window,null_last', [
+    (4, 2, 128, 16, [5, 37], None, ()),
+    (4, 1, 64, 8, [16, 3], None, ()),
+    (32, 8, 128, 16, [700, 1], None, ()),
+    (4, 2, 128, 32, [40, 64], 9, ()),
+    (4, 2, 64, 16, [16, 33, 20], None, (0, 2)),
+], ids=['gqa2', 'mqa_d64_ps8', 'llama3_8b', 'window_ps32', 'null_pages'])
+def test_paged_decode_int8_kernel_matches_plain(dev, dtype, h, kvh, d, ps,
+                                                ctxs, window, null_last):
+    q, pk, pv, table, mask = _decode_case(
+        dev, torch.float32, b=len(ctxs), h=h, kvh=kvh, d=d, ps=ps,
+        ctxs=ctxs, window=window, null_last=null_last)
+    q = q.to(dtype)
+    pk, ks = _quantized(pk, True)
+    pv, vs = _quantized(pv, True)
+    kw = dict(scale=d ** -0.5, key_scale=ks, value_scale=vs)
+    before = (pa.launches, pa.launches_int8)
+    got = pa.paged_decode_attention(q, pk, pv, table, mask,
+                                    probs_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.launches_int8) == (before[0], before[1] + 1)
+    assert got.shape == (len(ctxs), 1, h, d) and got.dtype == dtype
+    if dtype == torch.float32:
+        want = pa.paged_decode_attention_plain(q, pk, pv, table, mask,
+                                               probs_dtype=dtype, **kw)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        _assert_within_rounding(
+            got, pa.paged_decode_attention_plain, (q, pk, pv, table, mask),
+            kw, probs_rounded=False)
+
+
 def _prefill_case(dev, dtype, *, bases, s, h, kvh, d, ps, L, true_lens,
                   seed=0):
     g = torch.Generator().manual_seed(seed)
@@ -172,6 +227,74 @@ def test_ragged_prefill_kernel_matches_plain(dev, bases, s, h, kvh, d, ps,
     assert got.shape == (len(bases), s, h, d) and got.dtype == dtype
     _assert_within_rounding(got, rp.ragged_prefill_attention_plain, case,
                             kw, probs_rounded=True)
+
+
+@pytest.mark.parametrize('bases,s,h,kvh,d,ps,true_lens,window', [
+    ([0], 64, 4, 2, 128, 16, [64], None),
+    ([13], 40, 4, 1, 64, 8, [50], None),
+    ([96, 7], 33, 8, 2, 128, 16, [120, 30], None),
+    ([200], 70, 4, 2, 128, 32, [300], 48),
+    ([2560], 512, 32, 8, 128, 16, [3000], None),
+], ids=['base0', 'mqa_d64', 'ragged_pad', 'window',
+        'llama3_8b_last_chunk'])
+def test_ragged_prefill_int8_kernel_matches_plain(dev, bases, s, h, kvh, d,
+                                                  ps, true_lens, window):
+    dtype = torch.bfloat16
+    q, k, v, table, base, kvm = _prefill_case(
+        dev, torch.float32, bases=bases, s=s, h=h, kvh=kvh, d=d, ps=ps,
+        L=4096 if s == 512 else 512, true_lens=true_lens)
+    k, ks = _quantized(k, False)
+    v, vs = _quantized(v, False)
+    case = (q.to(dtype), k, v, table, base, kvm)
+    kw = dict(scale=d ** -0.5, page_size=ps, window=window, key_scale=ks,
+              value_scale=vs)
+    before = (rp.launches, rp.launches_int8)
+    got = rp.ragged_prefill_attention(*case, probs_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert (rp.launches, rp.launches_int8) == (before[0], before[1] + 1)
+    assert got.shape == (len(bases), s, h, d) and got.dtype == dtype
+    _assert_within_rounding(got, rp.ragged_prefill_attention_plain, case,
+                            kw, probs_rounded=True)
+
+
+def test_int8_wrappers_raise_instead_of_falling_back(dev):
+    """An int8 CUDA cache the kernels cannot take raises ValueError and is
+    never handed to the plain version: a wrong scale shape, a wrong scale
+    dtype, an f32 query for the tensor-core prefill kernel."""
+    q, pk, pv, table, mask = _decode_case(
+        dev, torch.float32, b=1, h=4, kvh=2, d=64, ps=16, ctxs=[5])
+    pk, ks = _quantized(pk, True)
+    pv, vs = _quantized(pv, True)
+    counts = (pa.launches, pa.launches_int8)
+    for kw, match in ((dict(key_scale=ks[..., 0], value_scale=vs),
+                       'key_scale'),
+                      (dict(key_scale=ks, value_scale=vs.half()),
+                       'value_scale')):
+        with pytest.raises(ValueError, match=match):
+            pa.paged_decode_attention(q, pk, pv, table, mask, scale=0.1,
+                                      probs_dtype=torch.float32, **kw)
+    with pytest.raises(ValueError, match='device'):
+        pa.paged_decode_attention(q, pk, pv, table, mask, scale=0.1,
+                                  probs_dtype=torch.float32, key_scale=ks,
+                                  value_scale=vs.cpu())
+    assert (pa.launches, pa.launches_int8) == counts
+    q, k, v, table, base, kvm = _prefill_case(
+        dev, torch.float32, bases=[0], s=16, h=4, kvh=2, d=64, ps=16, L=64,
+        true_lens=[16])
+    k, ks = _quantized(k, False)
+    v, vs = _quantized(v, False)
+    counts = (rp.launches, rp.launches_int8)
+    for qq, kw, match in (
+            (q.bfloat16(), dict(key_scale=ks[:, :, :32], value_scale=vs),
+             'key_scale'),
+            (q.bfloat16(), dict(key_scale=ks, value_scale=vs.double()),
+             'value_scale'),
+            (q, dict(key_scale=ks, value_scale=vs), 'bfloat16 or float16')):
+        with pytest.raises(ValueError, match=match):
+            rp.ragged_prefill_attention(qq, k, v, table, base, kvm,
+                                        scale=0.1, probs_dtype=qq.dtype,
+                                        page_size=16, **kw)
+    assert (rp.launches, rp.launches_int8) == counts
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
