@@ -19,8 +19,14 @@ Phases, any failure exits non-zero:
                contexts 100-4000 over a shuffled page pool with a
                poisoned null page.  Prefill: the 512-token chunks of a
                3000-token prompt at cursor base 0, 1536 and 2560 (the
-               last chunk, where kv_mask cuts into the chunk).
-     The int8 branches of both at the same shapes: the pools and caches
+               last chunk, where kv_mask cuts into the chunk), timed;
+               then, checked only, the cases the prefill kernel's tiling
+               can get wrong (PREFILL_EDGES): a chunk of 200 rows (not a
+               multiple of the 64-row tile), a 1024-token window, a
+               permuted block table, d 64, f16, pages of 8 and of 32
+               tokens at a base that is not a multiple of the page.
+     The int8 branches of both at the same shapes (the prefill edge
+               cases too): the pools and caches
                are quantize_int8_rows of the same bf16 rows (the decode
                null page poisoned with int8 127 at a scale of 1e4), held
                against the plain int8 versions at f32 on the same int8
@@ -45,18 +51,26 @@ Phases, any failure exits non-zero:
                must have launched, the int8 branches not.  Then: a
                repeated greedy prompt must give the same tokens; prefill
                and decode tokens/s; and the first decode step's logits of
-               one request with the kernels and with the plain versions
-               must agree.
+               one request with the kernels and with their plain versions
+               ('plain') must agree.
      serve_int8 - the bf16 server freed, the same with
                kv_cache_dtype='int8' (same weights and requests): only
                the int8 branches may launch, both must; the pools' bytes
                against the bf16 ones; greedy repeat; tokens/s; then four
                prompts (40-3000 tokens) prefilled and decoded one step
-               through the kernels and, apart, through the plain versions:
-               the prefill and decode logits must agree within
+               through the kernels and, apart, through their plain
+               versions: the prefill and decode logits must agree within
                INT8_LOGITS_REL_TOL.  Readings only: the int8 cache's
                logits against the bf16 cache's, and the share of greedy
                tokens equal to the bf16 phase's.
+     serve_unpaged - the default, unpaged server (page_size 0, a
+               contiguous slot cache: the reference runs no kernel there)
+               on llama3-8b at full width cut to UNPAGED_LAYERS layers,
+               f32 weights and activations: 3 concurrent greedy requests
+               of UNPAGED_NEW new tokens, every launch count 0.  Held to
+               the same model served paged with kernel='xla': equal
+               greedy tokens, and first decode step logits within
+               UNPAGED_LOGITS_REL_TOL of max |logit|.
   5. train   - `python -m skypilot_tpu_torch.train` (its `main`) on
                llama3-8b at its published widths, depth cut to 4 layers,
                batch 2 x seq 4096, 5 steps (bf16 compute, f32 params and
@@ -75,8 +89,9 @@ Phases, any failure exits non-zero:
                path (serve phase, serve_int8 phase, train phase), error,
                times and bound; the int8 entries carry "branch": "quant".
                The prefill entry's times and bound are the base-1536
-               chunk's, its max_abs_err the worst over the three chunks,
-               and `cases` holds each chunk's numbers; the flash entries
+               chunk's, its max_abs_err the worst over the three chunks
+               and the edge cases, and `cases` holds each one's numbers
+               (the edge cases untimed); the flash entries
                likewise hold the training shape's times and bound and the
                worst error over their three cases.
 The last line is {"ok": true, "device": {...}}.
@@ -136,6 +151,15 @@ LOGITS_REL_TOL = 0.06
 # reads 0.0312-0.0418 over four prompts (eight readings); the limit is
 # 1.5x the largest.
 INT8_LOGITS_REL_TOL = 0.063
+# Unpaged serving (no kernel) against paged serving with kernel='xla', at
+# f32: the two read the same cache values through the same plain
+# grouped attention over the same read window, so their first decode
+# step's logits differ by f32 summation order at most.  At bf16 two read
+# formulations of a random-weight model part ways by rounding alone.
+UNPAGED_LAYERS = 4
+UNPAGED_NEW = 16
+UNPAGED_LENS = (40, 700, 1500)
+UNPAGED_LOGITS_REL_TOL = 1e-4
 # Training: llama3-8b widths at 4 of its 32 layers, to keep the run short
 # (f32 params, grads and two AdamW moments are 16 bytes a parameter: 128
 # GB at full depth does not fit the card, 31 GB at 4 layers leaves room),
@@ -172,12 +196,17 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events over `iters` calls."""
+    """Mean device time of one call, by CUDA events over `iters` calls.
+    The calls queue behind a busy-wait kernel of about 10 ms, so the
+    host's cost of launching them (the wrapper's checks, ctypes) does not
+    leave the device idle between them: a fast kernel's time is its own,
+    not its launch's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # pylint: disable=protected-access
     start.record()
     for _ in range(iters):
         fn()
@@ -187,19 +216,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def check_kernel(name: str, got: torch.Tensor, plain, args, kw: dict, *,
-                 probs_rounded: bool) -> float:
-    """Max abs error of a bf16 kernel output `got` against `plain(*args,
-    **kw)` run at f32 on the same values; raises when an element is not
-    finite or outside U_BF16 * |plain| + F32_SLACK * A (+ U_BF16 * A when
-    the kernel rounds its probabilities).  args[2] is the values."""
+                 probs_rounded: bool, u: float = U_BF16) -> float:
+    """Max abs error of a bf16 kernel output `got` (f16: u = 2^-11, its
+    unit roundoff) against `plain(*args, **kw)` run at f32 on the same
+    values; raises when an element is not finite or outside u * |plain| +
+    F32_SLACK * A (+ u * A when the kernel rounds its probabilities).
+    args[2] is the values."""
     args32 = [a.float() if torch.is_tensor(a) and a.is_floating_point()
               else a for a in args]
     kw32 = dict(kw, probs_dtype=torch.float32)
     want = plain(*args32, **kw32).float()
     absv = plain(*args32[:2], args32[2].abs(), *args32[3:], **kw32).float()
-    tol = U_BF16 * want.abs() + F32_SLACK * absv
+    tol = u * want.abs() + F32_SLACK * absv
     if probs_rounded:
-        tol += U_BF16 * absv
+        tol += u * absv
     err = (got.float() - want).abs()
     # An element with no bound (an exact zero, e.g. a query that sees one
     # int8 column holding 0) must be exact.
@@ -335,24 +365,78 @@ def _kernel_decode(dev, rng, quant):
                 bound_by=by, library_ms=lib_ms)
 
 
-def _kernel_prefill(dev, quant):
+# Prefill cases the kernel's tiling can get wrong, checked but not timed:
+# (name, S, d, page size, cursor base, dtype, permuted table, window),
+# each over a [1, 8, 4096, d] cache whose kv_mask ends at 3000, with 32
+# query heads.  A permuted table walks all 4096 / page positions in a
+# shuffled page order; visibility follows the physical positions.
+PREFILL_EDGES = (
+    ('s200', 200, 128, 16, 1100, DTYPE, False, None),
+    ('window1024', 512, 128, 16, 1536, DTYPE, False, 1024),
+    ('permuted_table', 512, 128, 16, 1536, DTYPE, True, None),
+    ('d64', 512, 64, 16, 1536, DTYPE, False, None),
+    ('f16', 512, 128, 16, 1536, torch.float16, False, None),
+    ('ps8', 512, 128, 8, 1536, DTYPE, False, None),
+    ('ps32_base_mid_page', 512, 128, 32, 1541, DTYPE, False, None),
+)
+PREFILL_MAX_LEN, PREFILL_TRUE_LEN = 4096, 3000
+
+
+def _prefill_cache(dev, g, quant, d=D, dtype=DTYPE):
+    """keys, values [1, KVH, 4096, d] (int8 with f32 scales when `quant`),
+    their scales as kwargs, and the library yardstick's K/V."""
     from skypilot_tpu_torch.ops import grouped_attention as ga
+    shape = (1, KVH, PREFILL_MAX_LEN, d)
+    keys = torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    values = torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    if not quant:
+        return keys, values, {}, (keys, values)
+    keys, ks = ga.quantize_int8_rows(keys)
+    values, vs = ga.quantize_int8_rows(values)
+    return (keys, values, dict(key_scale=ks, value_scale=vs),
+            (_dequantized(keys, ks), _dequantized(values, vs)))
+
+
+def _prefill_edges(dev, name, quant):
+    """Check the kernel (float or int8 branch) on each PREFILL_EDGES case;
+    returns one case dict each (max_abs_err, no times)."""
+    from skypilot_tpu_torch.ops import ragged_prefill as rp
+    out = []
+    for case, s, d, ps, base, dtype, permuted, window in PREFILL_EDGES:
+        g = torch.Generator(device=dev).manual_seed(5)
+        keys, values, scales, _ = _prefill_cache(dev, g, quant, d, dtype)
+        qp = torch.randn(1, H, s, d, generator=g, device=dev, dtype=dtype)
+        n_pages = PREFILL_MAX_LEN // ps
+        if permuted:
+            walk = torch.randperm(n_pages, generator=g, device=dev)
+        else:   # the engine's read bucket
+            walk = torch.arange(-(-(base + s) // 512) * 512 // ps,
+                                device=dev)
+        tbl = walk.to(torch.int32)[None].contiguous()
+        kv_mask = (torch.arange(PREFILL_MAX_LEN, device=dev)
+                   < PREFILL_TRUE_LEN)[None]
+        kw = dict(scale=d ** -0.5, page_size=ps, window=window, **scales)
+        got = rp.ragged_prefill_attention(qp, keys, values, tbl, base,
+                                          kv_mask, probs_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        err = check_kernel(
+            f'{name} {case} (S {s}, d {d}, page {ps}, base {base}, '
+            f'{dtype}, window {window})', got,
+            rp.ragged_prefill_attention_plain,
+            (qp, keys, values, tbl, base, kv_mask), kw, probs_rounded=True,
+            u=2.0 ** -11 if dtype == torch.float16 else U_BF16)
+        out.append(dict(case=case, max_abs_err=err))
+        del keys, values, scales, qp, got
+    return out
+
+
+def _kernel_prefill(dev, quant):
     from skypilot_tpu_torch.ops import ragged_prefill as rp
     sdpa = torch.nn.functional.scaled_dot_product_attention
     name = 'ragged_prefill_int8' if quant else 'ragged_prefill'
-    s, max_len, true_len = 512, 4096, 3000
+    s, max_len, true_len = 512, PREFILL_MAX_LEN, PREFILL_TRUE_LEN
     g = torch.Generator(device=dev).manual_seed(2)
-    keys = torch.randn(1, KVH, max_len, D, generator=g, device=dev,
-                       dtype=DTYPE)
-    values = torch.randn(1, KVH, max_len, D, generator=g, device=dev,
-                         dtype=DTYPE)
-    scales = {}
-    lib_k, lib_v = keys, values
-    if quant:
-        keys, ks = ga.quantize_int8_rows(keys)
-        values, vs = ga.quantize_int8_rows(values)
-        scales = dict(key_scale=ks, value_scale=vs)
-        lib_k, lib_v = _dequantized(keys, ks), _dequantized(values, vs)
+    keys, values, scales, (lib_k, lib_v) = _prefill_cache(dev, g, quant)
     kv_mask = (torch.arange(max_len, device=dev) < true_len)[None]
     cases = []
     for base in (0, 1536, 2560):
@@ -361,14 +445,16 @@ def _kernel_prefill(dev, quant):
         n_read = read_len // PS
         tbl = torch.arange(n_read, dtype=torch.int32,
                            device=dev)[None].contiguous()
+        # The cursor base as the engine passes it: an int32 device tensor.
+        base_t = torch.tensor([base], dtype=torch.int32, device=dev)
         pkw = dict(scale=D ** -0.5, probs_dtype=DTYPE, page_size=PS,
                    **scales)
-        got = rp.ragged_prefill_attention(qp, keys, values, tbl, base,
+        got = rp.ragged_prefill_attention(qp, keys, values, tbl, base_t,
                                           kv_mask, **pkw)
         torch.cuda.synchronize()
         err = check_kernel(f'{name} base {base}', got,
                            rp.ragged_prefill_attention_plain,
-                           (qp, keys, values, tbl, base, kv_mask),
+                           (qp, keys, values, tbl, base_t, kv_mask),
                            dict(scale=D ** -0.5, page_size=PS, **scales),
                            probs_rounded=True)
         pos = torch.arange(read_len, device=dev)
@@ -378,18 +464,13 @@ def _kernel_prefill(dev, quant):
         kr = lib_k[:, :, :read_len]
         vr = lib_v[:, :, :read_len]
         ms = time_ms(lambda: rp.ragged_prefill_attention(
-            qp, keys, values, tbl, base, kv_mask, **pkw))
+            qp, keys, values, tbl, base_t, kv_mask, **pkw))
         plain_ms = time_ms(lambda: rp.ragged_prefill_attention_plain(
-            qp, keys, values, tbl, base, kv_mask, **pkw))
+            qp, keys, values, tbl, base_t, kv_mask, **pkw))
         lib_ms = time_ms(lambda: sdpa(qp, kr, vr, attn_mask=lib_mask,
                                       scale=D ** -0.5, enable_gqa=True))
-        # Visible (query, column) pairs: causal, and under kv_mask.
-        pairs = sum(min(base + i + 1, true_len) for i in range(s))
-        kv_row = 2 * (D + 4) if quant else 2 * D * 2
-        nbytes = (2 * s * H * D * 2
-                  + min(base + s, true_len) * KVH * kv_row
-                  + max_len + n_read * 4)
-        bms, by = bound(nbytes, 4.0 * pairs * H * D)
+        nbytes, flops = prefill_work(s, base, quant)
+        bms, by = bound(nbytes, flops)
         lib = ('sdpa on K/V dequantized to bf16 beforehand' if quant
                else 'sdpa')
         log(f'{name} base {base}: kernel {ms:.4f} ms, plain '
@@ -398,24 +479,42 @@ def _kernel_prefill(dev, quant):
         cases.append(dict(base=base, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                           library_ms=lib_ms))
-    main = dict(next(c for c in cases if c['base'] == 1536))
+    del keys, values, scales, lib_k, lib_v
+    cases += _prefill_edges(dev, name, quant)
+    main = dict(next(c for c in cases if c.get('base') == 1536))
     del main['base']
     main['max_abs_err'] = max(c['max_abs_err'] for c in cases)
     return dict(main, cases=cases)
 
 
-def phase_kernels(dev, quant=(False, True)) -> dict:
+def prefill_work(s: int, base: int, quant: bool):
+    """(bytes, flops) of one serving-shape prefill chunk (H 32, kvh 8,
+    d 128, a 3000-token kv_mask): q and out bf16 read and written once,
+    the live K/V rows once (int8 with an f32 scale each, or bf16), the
+    kv_mask row and the table; 4 d flops per visible (query, column) pair
+    and query head."""
+    pairs = sum(min(base + i + 1, PREFILL_TRUE_LEN) for i in range(s))
+    kv_row = 2 * (D + 4) if quant else 2 * D * 2
+    n_read = -(-(base + s) // 512) * 512 // PS
+    nbytes = (2 * s * H * D * 2 + min(base + s, PREFILL_TRUE_LEN) * KVH
+              * kv_row + PREFILL_MAX_LEN + n_read * 4)
+    return nbytes, 4.0 * pairs * H * D
+
+
+def phase_kernels(dev, quant=(False, True),
+                  kernels=('paged_decode', 'ragged_prefill')) -> dict:
     """The serving kernels at llama3-8b shapes, float and int8 branches
-    (`quant` picks which)."""
-    rng = np.random.RandomState(0)
+    (`quant` and `kernels` pick which)."""
     results = {}
-    if False in quant:
-        results['paged_decode'] = _kernel_decode(dev, rng, False)
-        results['ragged_prefill'] = _kernel_prefill(dev, False)
-    if True in quant:
-        results['paged_decode_int8'] = _kernel_decode(
-            dev, np.random.RandomState(0), True)
-        results['ragged_prefill_int8'] = _kernel_prefill(dev, True)
+    for q in (False, True):
+        if q not in quant:
+            continue
+        tag = '_int8' if q else ''
+        if 'paged_decode' in kernels:
+            results['paged_decode' + tag] = _kernel_decode(
+                dev, np.random.RandomState(0), q)
+        if 'ragged_prefill' in kernels:
+            results['ragged_prefill' + tag] = _kernel_prefill(dev, q)
     return results
 
 
@@ -694,7 +793,7 @@ def phase_serve(dev) -> dict:
     while all(s is None for s in eng._slots):  # pylint: disable=protected-access
         eng._schedule_front()  # pylint: disable=protected-access
     fused = eng.decode_logits('fused').float()
-    plain = eng.decode_logits('xla').float()
+    plain = eng.decode_logits('plain').float()
     row = next(i for i, s in enumerate(eng._slots) if s is not None)  # pylint: disable=protected-access
     diff = (fused[row] - plain[row]).abs().max().item()
     scale = plain[row].abs().max().item()
@@ -712,11 +811,13 @@ def phase_serve(dev) -> dict:
                 prompt=prompt, logits=fused[row].cpu())
 
 
-def first_step_logits(eng, prompts, kernel: str):
+def first_step_logits(eng, prompts, kernel: str, last=None):
     """Prefill `prompts` into free slots with `kernel` ('fused': the
-    kernels, 'xla': their plain versions), then run the first decode step
-    with it; returns (prefill logits at each prompt's last token, first
-    decode step logits), each [n, V] f32, and frees the slots."""
+    kernels, 'plain': their plain versions, 'xla': the reference's read),
+    then run the first decode step with it; returns (prefill logits at
+    each prompt's last token, first decode step logits), each [n, V] f32,
+    and frees the slots.  With `last` ([n, V]) the decode step samples
+    its token from those logits instead of the prefill's own."""
     from skypilot_tpu_torch.infer import engine as engine_lib
     saved = eng.prefill_kernel
     eng.prefill_kernel = kernel
@@ -729,6 +830,8 @@ def first_step_logits(eng, prompts, kernel: str):
         rows = [next(i for i, s in enumerate(slots)
                      if s is not None and s.request_id == r) for r in rids]
         prefill = eng._last[rows].float().clone()  # pylint: disable=protected-access
+        if last is not None:
+            eng._last[rows] = last.to(eng._last.dtype)  # pylint: disable=protected-access
         decode = eng.decode_logits(kernel)[rows].float()
     finally:
         eng.prefill_kernel = saved
@@ -743,9 +846,16 @@ def int8_logit_gaps(eng, prompts) -> list:
     plain versions, each prompt prefilled and decoded one step by each:
     [(prefill gap, decode gap)] per prompt, each max |kernels - plain|
     over max |plain| (inf where the kernels' logits are not finite);
-    and the kernels' first decode step logits [n, V]."""
+    and the kernels' first decode step logits [n, V].  Both decode steps
+    take the token the kernels' prefill logits give: where the two
+    prefills' greedy tokens differ (their logits are a few percent
+    apart), decode steps over different tokens have nothing to agree
+    on."""
     got = first_step_logits(eng, prompts, 'fused')
-    want = first_step_logits(eng, prompts, 'xla')
+    want = first_step_logits(eng, prompts, 'plain', last=got[0])
+    same = (got[0].argmax(-1) == want[0].argmax(-1)).tolist()
+    log(f'int8 logits check: greedy token of the kernels\' prefill equal '
+        f'to the plain versions\' for each prompt: {same}')
     gaps = []
     for i in range(len(prompts)):
         pair = []
@@ -814,6 +924,97 @@ def phase_serve_int8(dev, bf16: dict) -> dict:
         f'{len(GREEDY_LENS) * SERVE_NEW}')
     return dict(launches=launches, gaps=gaps, pool_bytes=pool_bytes,
                 bf16_gap=gap, greedy_agree=float(agree), **rates)
+
+
+def phase_serve_unpaged(dev) -> None:
+    """The default, unpaged server at f32 and reduced depth: no kernel
+    launches; held to the same model served paged with kernel='xla'."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import llama as llama_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = dict(model='llama3-8b', max_seq_len=4096, prefill_chunk=512,
+              model_overrides={'n_layers': UNPAGED_LAYERS,
+                               'dtype': 'float32'},
+              param_dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    srv = server_lib.InferenceServer(port=0, host='127.0.0.1',
+                                     max_batch_size=4,
+                                     allow_random_weights=True, **kw)
+    eng = srv.engine
+    log(f'serve_unpaged: llama3-8b width, {UNPAGED_LAYERS} layers, f32, '
+        f'page_size {eng.page_size}, kernels decode={eng.decode_kernel} '
+        f'prefill={eng.prefill_kernel}; ready in '
+        f'{time.perf_counter() - t0:.1f}s, '
+        f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
+    if not (eng.page_size == 0
+            and isinstance(eng._cache, llama_lib.SlotCache)  # pylint: disable=protected-access
+            and (eng.decode_kernel, eng.prefill_kernel) == ('xla', 'xla')):
+        raise AssertionError('the default server is not unpaged')
+    srv.start()
+    http_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    http_thread.start()
+    url = f'http://127.0.0.1:{srv.port}'
+    vocab = eng.config.vocab_size
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, vocab, n).tolist() for n in UNPAGED_LENS]
+    out = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            out[i] = _post(url + '/generate', dict(
+                prompt_ids=[prompts[i]], max_new_tokens=UNPAGED_NEW,
+                temperature=0.0))['tokens'][0]
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(repr(e))
+
+    # The main path: every count set to 0 just before, read just after.
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    burst_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    srv.shutdown()
+    http_thread.join(timeout=30)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f'unpaged requests failed: {errors}')
+    log(f'serve_unpaged: {len(prompts)} concurrent greedy requests '
+        f'({list(UNPAGED_LENS)} prompt tokens, {UNPAGED_NEW} new each) in '
+        f'{burst_s:.2f}s; launches {launches}')
+    if any(launches.values()):
+        raise AssertionError(f'unpaged serving launched a kernel: '
+                             f'{launches}')
+    unpaged_logits = first_step_logits(eng, prompts, 'xla')[1]
+    del srv, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    paged = engine_lib.ContinuousBatchingEngine(
+        n_slots=4, page_size=PS, decode_kernel='xla', prefill_kernel='xla',
+        **kw)
+    want = paged.generate(prompts, engine_lib.SamplingConfig(
+        max_new_tokens=UNPAGED_NEW))
+    paged_logits = first_step_logits(paged, prompts, 'xla')[1]
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    gaps = [((u - p).abs().max() / p.abs().max()).item()
+            for u, p in zip(unpaged_logits, paged_logits)]
+    same = out == want
+    log(f'serve_unpaged: against paged serving with kernel=xla: greedy '
+        f'tokens equal {same}; first decode step logits max abs diff over '
+        f'max |logit| {[f"{x:.3e}" for x in gaps]} (limit '
+        f'{UNPAGED_LOGITS_REL_TOL})')
+    if not (same and torch.isfinite(unpaged_logits).all()
+            and max(gaps) <= UNPAGED_LOGITS_REL_TOL):
+        raise AssertionError('unpaged serving disagrees with paged serving')
 
 
 def _launch_counts() -> dict:
@@ -943,18 +1144,30 @@ def phase_train(dev) -> dict:
 
 
 def main() -> int:
+    t0 = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        log(f'{phase} phase done at {time.perf_counter() - t0:.1f}s')
+
     card = phase_device()
     dev = torch.device('cuda')
     phase_build()
+    lap('build')
     kernels = phase_kernels(dev)
     kernels.update(phase_flash_kernels(dev))
+    lap('kernel')
     bf16 = phase_serve(dev)
     launches = dict(bf16['launches'])
+    lap('serve')
     int8 = phase_serve_int8(dev, bf16)
     launches.update({k: int8['launches'][k] for k in SERVE_KERNELS_INT8})
     del bf16, int8
+    lap('serve_int8')
+    phase_serve_unpaged(dev)
+    lap('serve_unpaged')
     launches.update({k: v for k, v in phase_train(dev).items()
                      if k.startswith('flash')})
+    lap('train')
     entries = []
     for name, src, replaces in (
             ('paged_decode', 'paged_decode',

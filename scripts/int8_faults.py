@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Planted faults in the int8 branches of the serving kernels must fail
+"""Planted faults in the int8 branch of the paged-decode kernel must fail
 chip_smoke.py's int8 kernel check.
 
     python3 scripts/int8_faults.py
 
-For each fault below (four kinds, each planted in the paged-decode and
-in the ragged-prefill kernel), copies the port (skypilot_tpu_torch/ and
+(The ragged-prefill kernel's faults, int8 branch included, are
+scripts/prefill_faults.py's.)  For each fault below (four kinds in the
+paged-decode kernel), copies the port (skypilot_tpu_torch/ and
 chip_smoke.py) into skypilot_tpu_torch/_build/faults/<name>/
 (git-ignored) and changes one line of a kernel source there.  The
 copies' kernel libraries are built all at once, one process a copy.
@@ -43,20 +44,8 @@ FAULTS = (
     ('decode_int8_read_as_uint8', 'paged_decode.cu',
      '  return static_cast<float>(x);',
      '  return static_cast<float>(static_cast<uint8_t>(x));'),
-    ('prefill_key_scale_dropped', 'ragged_prefill.cu',
-     'if constexpr (kQuant) sc *= col_ks[col];',
-     'if constexpr (kQuant) sc *= 1.f;'),
-    ('prefill_value_scale_in_l', 'ragged_prefill.cu',
-     'psum += p;',
-     'psum += kQuant ? p * col_vs[half * 32 + c] : p;'),
-    ('prefill_scale_one_position_off', 'ragged_prefill.cu',
-     'col_ks[tid] = pos >= 0 ? ksc[head_off + pos] : 0.f;',
-     'col_ks[tid] = pos >= 0 ? ksc[head_off + (pos ^ 1)] : 0.f;'),
-    ('prefill_int8_read_as_uint8', 'ragged_prefill.cu',
-     '  return static_cast<float>(x);',
-     '  return static_cast<float>(static_cast<uint8_t>(x));'),
 )
-KERNELS = ['paged_decode', 'ragged_prefill']
+KERNELS = ['paged_decode']
 
 _BUILD = ('from skypilot_tpu_torch.ops import _build\n'
           f'_build.build({KERNELS!r})\n')
@@ -66,7 +55,8 @@ _RUN = ('import json, torch, chip_smoke as c\n'
         'c.phase_device()\n'
         'dev = torch.device("cuda")\n'
         'try:\n'
-        '    c.phase_kernels(dev, quant=(True,))\n'
+        '    c.phase_kernels(dev, quant=(True,),\n'
+        '                    kernels=("paged_decode",))\n'
         '    failed = False\n'
         'except AssertionError:\n'
         '    failed = True\n'

@@ -5,11 +5,13 @@
 
 Builds the port's ContinuousBatchingEngine on llama3-8b (random bf16
 weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
-4096, the CUDA kernels) and profiles three windows with torch.profiler:
+4096, the CUDA kernels) and profiles five windows with torch.profiler:
 
   prefill - one 3000-token prompt: its six 512-token chunks and the
             decode step that emits its token;
   decode  - 16 decode steps at batch 8 (8 live slots, 64-token prompts);
+  prefill_int8, decode_int8 - the same two with the engine freed and
+            rebuilt with an int8 KV cache (kv_cache_dtype='int8');
   train   - with the engine freed, the port's Trainer on llama3-8b widths
             cut to 4 layers, batch 2 x seq 4096 (random weights from a
             seed): 2 steps after one unprofiled step.
@@ -81,11 +83,12 @@ def _summary(name, prof, wall_s, steps):
     }
 
 
-def _serve_windows(window):
+def _serve_windows(window, kv_cache_dtype):
     from skypilot_tpu_torch.infer import engine as engine_lib
     eng = engine_lib.ContinuousBatchingEngine(
         model='llama3-8b', n_slots=8, max_seq_len=4096, prefill_chunk=512,
-        page_size=16, seed=0)
+        page_size=16, seed=0, kv_cache_dtype=kv_cache_dtype)
+    tag = '_int8' if kv_cache_dtype == 'int8' else ''
     eng.generate([[1, 2, 3]], engine_lib.SamplingConfig(max_new_tokens=2))
     rng = np.random.RandomState(0)
     vocab = eng.config.vocab_size
@@ -98,7 +101,7 @@ def _serve_windows(window):
             steps += 1
         return steps
 
-    window('prefill', prefill)
+    window('prefill' + tag, prefill)
     for _ in range(8):
         eng.submit(rng.randint(0, vocab, 64).tolist(),
                    engine_lib.SamplingConfig(max_new_tokens=40))
@@ -109,7 +112,7 @@ def _serve_windows(window):
             eng.step()
         return 16
 
-    window('decode', decode)
+    window('decode' + tag, decode)
     eng.run_until_idle()
 
 
@@ -157,9 +160,10 @@ def main() -> int:
                 args.trace_dir, f'port_profile_{name}.json'))
         print(json.dumps(_summary(name, prof, wall, steps)), flush=True)
 
-    _serve_windows(window)
-    gc.collect()
-    torch.cuda.empty_cache()
+    for kv_cache_dtype in ('auto', 'int8'):
+        _serve_windows(window, kv_cache_dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
     _train_window(window)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,

@@ -20,142 +20,183 @@
 // qpos = base[b] + (r mod S) and kv_pos = table[b, j] * ps + col, a
 // column is kept when kv_pos <= qpos, kv_pos >= qpos - window + 1 (with a
 // window) and kv_mask[b, kv_pos].  No mask tensor exists in memory.
+// Edge semantics follow the reference: masked scores are -1e30, so a
+// query row that sees no column at all averages V over every column of
+// the walk (p = exp(0) for each); the output is acc / l with l == 0 (an
+// empty walk) guarded to a zero output.
 //
 // What bounds it on the H100: operations.  A chunk of S queries over a
 // prefix of P positions does 4 * S * P * d flops per query head against
-// (P + S) * d * 2 elements of K/V per kv head - hundreds of flops per
-// byte at a 512-token chunk.  The translation that matters is the row
-// tiling: the TPU program held all G*S = 2048 query rows of a kv head
-// in VMEM and walked pages in grid order; one Hopper block holds 64
-// rows, so the rows are tiled over blocks (grid: B*kvh x ceil(G*S/64)),
-// and the page walk becomes a loop inside each block over 64-column
-// tiles of the prefix.  Each tile of K and V is staged once in shared
-// memory and reused by all 64 rows (FlashAttention-2 shape).  Tiles wholly
-// past the block's last query position, or wholly before its first
-// query's window, are skipped: they hold no visible column for any row.
-// It takes bf16/f16 and runs on the tensor cores: each of the 4 warps
-// owns 16 query rows and multiplies with warp-level
-// 16x16x16 mma (nvcuda::wmma), f32 accumulation; the scores go through
-// shared memory for the masked online softmax (f32 m/l per row), the
-// probabilities are rounded to the input type for the PV product (as the
-// reference rounds them to probs_dtype), and the f32 output accumulator
-// lives in shared memory, rescaled by each row's correction factor
-// before the next tile's PV product is added.  Hopper's wgmma and TMA,
-// and a register-resident accumulator, are the next steps.
-// The quant branch stages each int8 K/V tile converted to q's 16-bit
-// type in shared memory (exact: |x| <= 127 < 2^8 fits bf16's 8-bit
-// significand), so the same WMMA products run on it; the key scales of
-// the tile's 64 columns ride in shared memory beside the positions, and
-// the value scales are folded into p before p is rounded to 16 bits for
-// the PV product (one rounding of p * vs, where the float branch rounds
-// p).  No float copy of the cache is written to device memory.
-// Edge semantics follow the reference: masked scores are -1e30, a row's
-// output is acc / l with l == 0 guarded to a zero output.  One
-// difference, on no row the serving path produces: a row that sees no
-// column at all averages V over the tiles it walked, where the
-// reference averages over every page of the walk.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+// (P + S) * d * 2 bytes of K/V per kv head: about 600 flops a byte at the
+// serving shape (S 512, P 2048, d 128, G 4), twice the card's ~295.
+// So the design is about keeping the tensor cores fed:
+//   - Tiling.  A block holds 64 query rows of one (row, kv head): the
+//     flattened G x S rows of a kv head (G query heads share its K/V)
+//     are cut into 64-row tiles, grid B * kvh x ceil(G * S / 64).  At
+//     the serving shape that is 8 x 32 = 256 blocks of 4 warps; a block
+//     needs about 90 KB of shared memory (d 128, the page table
+//     included) and at most 255 registers a thread, so two blocks fit
+//     an SM and 264 slots on 132 SMs take all 256 blocks in one wave.
+//     128-row tiles would give 128 blocks, one an SM, 4 SMs idle, and
+//     no second block to cover a block's barrier stalls.
+//   - Tensor cores: mma.sync m16n8k16 (bf16/f16 in, f32 accumulate),
+//     the main loop of attn_fwd_mainloop.cuh.  Each warp owns 16 query
+//     rows; their Q fragments, the scores, the probabilities, the
+//     online-softmax m and l and the f32 output accumulator live in
+//     registers from the first tile to the last.  p is rounded to q's
+//     type in registers and fed to the PV product as its A operand.
+//     mma.sync rather than wgmma: wgmma needs its B operand (K, V) in
+//     shared memory in a swizzled layout and a warpgroup-wide pipeline of
+//     its own; mma.sync on ldmatrix fragments is what flash_common.cuh
+//     already gets right, and it leaves the rows' softmax state with the
+//     warp that owns them.
+//   - Copies.  K/V tiles of 64 columns move through a two-stage ring in
+//     shared memory filled by cp.async, 16 bytes a thread, one commit
+//     group a tile: the next live tile's copy is issued right after the
+//     barrier that opens this tile (which also tells every thread that
+//     the stage it refills has been read) and is in flight while this
+//     tile's products run; one barrier a tile (two in the quant branch,
+//     whose widening pass must land before the products).  The page walk
+//     is resolved per cache row: column c of tile j is page table[j * 64 /
+//     ps + c / ps], row c mod ps, a contiguous run of d elements.  The
+//     block copies its table row into shared memory once (at most
+//     kMaxPages entries), so neither the walk nor the liveness test of a
+//     tile reads device memory.  A tile's kv_mask bytes and scales are
+//     loaded into registers when its copy is issued and stored to
+//     shared memory after the current tile's products, so their latency
+//     hides behind them too.
+//   - Skipping.  Tiles wholly past the block's last query position, or
+//     wholly before its first query's window, hold no visible column
+//     for any of its rows and are not visited.  A row that sees no
+//     column at all needs them all (it averages V over the whole walk):
+//     after the loop, a block with such a row sums V over the skipped
+//     tiles of the walk once (device-memory reads, a rare path) and adds
+//     that sum and its column count to those rows.
+//   - The quant branch moves int8 tiles (half the bytes of bf16) through
+//     the same ring and widens them to q's 16-bit type in one shared
+//     memory pass a tile (exact: |x| <= 127 fits bf16's 8-bit
+//     significand), so the same products run on them.  The 64 key and
+//     value scales of a tile ride in shared memory beside its positions;
+//     the key scale multiplies the score after `scale`, the value scale
+//     weighs p before p is rounded for PV (one rounding of p * vs, where
+//     the float branch rounds p), and l sums the unscaled p.
+// ptxas (-Xptxas -v, CUDA 12.8, sm_90a) reports no spills and 0 bytes of
+// stack for every instantiation; registers a thread: float branch 228
+// (d 128) and 192 (d 64), quant branch 246 and 208, bf16 and f16 alike;
+// static shared memory 1024 / 768 bytes (float) and 2048 / 1792 (quant)
+// beside the dynamic ring.  chip_smoke.py prints the report at build.
+#include "attn_fwd_mainloop.cuh"
 
 #include <type_traits>
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kBR = 64;       // query rows per block
-constexpr int kBC = 64;       // cache columns per tile
-constexpr int kThreads = 128; // 4 warps of 16 query rows each
+using flash::Elem;
+using flash::kNegInf;
+using flash::kThreads;  // 4 warps of 16 query rows each
+
+constexpr int kBR = 64;                   // query rows per block
+constexpr int kBC = attn::kTileCols;      // cache columns per tile
+constexpr int kMaxPages = 4096;           // table entries a block holds
+constexpr int kMasked = 0x7fffffff;       // a walked column kv_mask hides
+
+template <typename T, typename KT, int D>
+struct Layout {
+  static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  static constexpr int LD = D + 8;        // 16-bit tile row stride
+  static constexpr int LD8 = D + 16;      // int8 tile row stride (bytes)
+  static constexpr size_t kTile = static_cast<size_t>(kBC) * LD * 2;
+  static constexpr size_t kTile8 = static_cast<size_t>(kBC) * LD8;
+  // Q, the ring's two K/V stages (16-bit, or int8 and then the one pair
+  // of 16-bit tiles they are widened into), then the page table.
+  static constexpr size_t kStage = kQuant ? kTile8 : kTile;
+  static constexpr size_t kFixed = static_cast<size_t>(kBR) * LD * 2 +
+                                    4 * kStage + (kQuant ? 2 * kTile : 0);
+  static size_t bytes(int n_read) {
+    return kFixed + 4 * static_cast<size_t>(n_read);
+  }
+};
+
+// The columns of one tile as the main loop reads them: a cache position
+// (or -1 past the walk, kMasked where kv_mask hides it) and, in the
+// quant branch, the key and value scales.
+template <bool kQuant>
+struct PrefillPolicy {
+  struct Col {
+    int key;
+    float ks;
+    float vs;
+  };
+  const int* key;
+  const float* ks;
+  const float* vs;
+  float scale;
+  int qpos[2];
+  int window;
+
+  __device__ __forceinline__ Col col(int c) const {
+    return Col{key[c], kQuant ? ks[c] : 1.f, kQuant ? vs[c] : 1.f};
+  }
+  __device__ __forceinline__ bool walk(const Col& c) const {
+    return c.key >= 0;
+  }
+  __device__ __forceinline__ float score(int i, const Col& c,
+                                         float raw) const {
+    const bool keep = c.key >= 0 && c.key <= qpos[i] &&
+                      (window <= 0 || c.key >= qpos[i] - window + 1);
+    float x = raw * scale;
+    if (kQuant) x *= c.ks;
+    return keep ? x : kNegInf;
+  }
+  __device__ __forceinline__ float pscale(const Col& c) const {
+    return kQuant ? c.vs : 1.f;
+  }
+};
 
 template <typename T>
-__device__ __forceinline__ T from_f(float x);
+__device__ __forceinline__ float to_f(T x);
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
+__device__ __forceinline__ float to_f<__half>(__half x) {
+  return __half2float(x);
 }
-
-constexpr int kLdS = kBC + 4;                // f32 score tile row stride
-constexpr int kLdP = kBC + 8;                // probability tile row stride
-
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  // Q, K, V tiles (16-bit, row stride D + 8), f32 scores, 16-bit
-  // probabilities, f32 output accumulator (row stride D + 4).  Every
-  // region is a multiple of 128 bytes, so each stays 32-byte aligned
-  // for the fragment loads.
-  return 3 * static_cast<size_t>(kBR) * (D + 8) * 2 +
-         static_cast<size_t>(kBR) * kLdS * 4 +
-         static_cast<size_t>(kBR) * kLdP * 2 +
-         static_cast<size_t>(kBR) * (D + 4) * 4;
-}
-
-__device__ __forceinline__ float int8_to_f(int8_t x) {
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t x) {
   return static_cast<float>(x);
 }
 
-// Copy a [64, D] tile of rows of SRC (T, or int8_t converted to T on
-// the way: exact for |x| <= 127) into shared memory as T, 16 bytes
-// written a thread-step; `src(r)` is row r's global address or nullptr
-// for a zero row.
-template <typename T, int D, typename SRC, typename RowFn>
-__device__ __forceinline__ void load_tile(T* dst, RowFn src, int tid) {
-  constexpr int kVec = 8;                    // 16-bit elements per uint4
-  constexpr int kPerRow = D / kVec;
-  for (int i = tid; i < kBR * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    const SRC* row = src(r);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if constexpr (std::is_same<SRC, int8_t>::value) {
-      if (row != nullptr) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(row + c);
-        const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
-        T* t = reinterpret_cast<T*>(&v);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) t[e] = from_f<T>(int8_to_f(x[e]));
-      }
-    } else {
-      if (row != nullptr) v = *reinterpret_cast<const uint4*>(row + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = v;
-  }
-}
-
 template <typename T, typename KT, int D>
-__global__ void __launch_bounds__(kThreads)
-    ragged_prefill_mma_kernel(const T* __restrict__ q,
-                              const KT* __restrict__ kc,
-                              const KT* __restrict__ vc,
-                              const float* __restrict__ ksc,
-                              const float* __restrict__ vsc,
-                              const int* __restrict__ table,
-                              const int* __restrict__ base,
-                              const uint8_t* __restrict__ kv_mask,
-                              T* __restrict__ out, int H, int S, int kvh,
-                              int L, int n_read, int ps, int window,
-                              float scale) {
-  using namespace nvcuda;
-  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
-  constexpr int LD = D + 8;                  // 16-bit tile row stride
-  constexpr int LO = D + 4;                  // f32 accumulator row stride
-  constexpr int HALF = D / 2;                // output columns per lane
+__global__ void __launch_bounds__(kThreads, 2)
+    ragged_prefill_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
+                          const KT* __restrict__ vc,
+                          const float* __restrict__ ksc,
+                          const float* __restrict__ vsc,
+                          const int* __restrict__ table,
+                          const int* __restrict__ base,
+                          const uint8_t* __restrict__ kv_mask,
+                          T* __restrict__ out, int H, int S, int kvh, int L,
+                          int n_read, int ps, int window, float scale) {
+  using Lay = Layout<T, KT, D>;
+  constexpr bool kQuant = Lay::kQuant;
+  constexpr int LD = Lay::LD;
+  constexpr int LDS = kQuant ? Lay::LD8 : LD;      // ring row stride (elems)
+  constexpr int kVec = 16 / sizeof(KT);            // elements per 16 bytes
+  constexpr int kChunks = D / kVec;                // 16-byte chunks a row
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + kBR * LD;
-  T* Vs = Ks + kBC * LD;
-  float* Ss = reinterpret_cast<float*>(Vs + kBC * LD);
-  T* Ps = reinterpret_cast<T*>(Ss + kBR * kLdS);
-  float* Os = reinterpret_cast<float*>(Ps + kBR * kLdP);
-  __shared__ int col_pos[kBC];
-  __shared__ uint8_t col_ok[kBC];
-  __shared__ float col_ks[kBC];  // quant: the columns' key and value
-  __shared__ float col_vs[kBC];  // scales (0 past the walk)
+  KT* ring = reinterpret_cast<KT*>(smem_raw + kBR * LD * 2);
+  // Stage s: K at ring + 2 s * stage, V at ring + (2 s + 1) * stage.
+  constexpr int kStageElems = static_cast<int>(Lay::kStage / sizeof(KT));
+  T* Kw = reinterpret_cast<T*>(ring + 4 * kStageElems);  // quant: widened
+  T* Vw = Kw + kBC * LD;
+  int* tbl = reinterpret_cast<int*>(smem_raw + Lay::kFixed);
+  __shared__ int col_key[2][kBC];
+  __shared__ float col_ks[2][kBC];
+  __shared__ float col_vs[2][kBC];
+  __shared__ float colsum[D];
 
   const int b = blockIdx.x / kvh;
   const int h = blockIdx.x % kvh;
@@ -166,15 +207,13 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int bs = base[b];
-  const int* trow = table + static_cast<size_t>(b) * n_read;
+  const size_t head_off = (static_cast<size_t>(b) * kvh + h) * L;
+  const int ppt = kBC / ps;                        // pages a tile
+  const int n_tiles = (n_read + ppt - 1) / ppt;
+  const int ps_shift = __ffs(ps) - 1;              // ps is a power of two
 
-  load_tile<T, D, T>(Qs, [&](int r) -> const T* {
-    const int row = r0 + r;
-    if (row >= GS) return nullptr;
-    return q + ((static_cast<size_t>(b) * H + h * G + row / S) * S +
-                row % S) * D;
-  }, tid);
-  for (int i = tid; i < kBR * LO; i += kThreads) Os[i] = 0.f;
+  for (int i = tid; i < n_read; i += kThreads)
+    tbl[i] = table[static_cast<size_t>(b) * n_read + i];
   __syncthreads();
 
   const int r_last = min(r0 + kBR, GS) - 1;
@@ -186,167 +225,226 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int q_lo = bs + s_lo;
   const int q_hi = bs + s_hi;
-
-  // This lane's softmax row (two lanes per row, 32 columns each) and
-  // output half-row.
-  const int my_r = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int my_qpos = bs + (r0 + my_r) % S;
-  float m = kNegInf;
-  float l = 0.f;
-
-  const int pages_per_tile = kBC / ps;
-  for (int j0 = 0; j0 < n_read; j0 += pages_per_tile) {
-    bool live = false;
-    for (int p = 0; p < pages_per_tile && j0 + p < n_read; ++p) {
-      const int start = trow[j0 + p] * ps;
+  // Whether tile j holds a visible column for some row of the block
+  // (uniform over the block).
+  auto live = [&](int j) -> bool {
+    for (int p = 0; p < ppt; ++p) {
+      const int jp = j * ppt + p;
+      if (jp >= n_read) break;
+      const int start = tbl[jp] * ps;
       if (start <= q_hi &&
           (window <= 0 || start + ps - 1 >= q_lo - window + 1))
-        live = true;
+        return true;
     }
-    if (!live) continue;  // uniform over the block
-    __syncthreads();      // the previous tile's readers are done
+    return false;
+  };
+  auto next_live = [&](int j) -> int {
+    while (j < n_tiles && !live(j)) ++j;
+    return j;
+  };
+  // Cache position of column c of tile j, -1 past the walk.
+  auto position = [&](int j, int c) -> int {
+    const int jp = j * ppt + (c >> ps_shift);
+    return jp < n_read ? tbl[jp] * ps + (c & (ps - 1)) : -1;
+  };
+  // Issue tile j's K/V copies into stage st as one commit group.
+  auto issue = [&](int j, int st) {
+    KT* ks_dst = ring + (2 * st) * kStageElems;
+    KT* vs_dst = ring + (2 * st + 1) * kStageElems;
+    for (int i = tid; i < kBC * kChunks; i += kThreads) {
+      const int c = i / kChunks;
+      const int e = (i % kChunks) * kVec;
+      const int pos = position(j, c);
+      const size_t off = (head_off + (pos < 0 ? 0 : pos)) * D + e;
+      attn::cp_async16(ks_dst + c * LDS + e, kc + off, pos >= 0);
+      attn::cp_async16(vs_dst + c * LDS + e, vc + off, pos >= 0);
+    }
+    attn::cp_async_commit();
+  };
+  // Column metadata of tile j (threads tid < kBC, one column each), read
+  // into registers by `meta_load` and stored to stage st by `meta_store`.
+  int m_key = -1;
+  float m_ks = 0.f, m_vs = 0.f;
+  auto meta_load = [&](int j) {
     if (tid < kBC) {
-      const int j = j0 + tid / ps;
-      int pos = -1;
-      uint8_t ok = 0;
-      if (j < n_read) {
-        pos = trow[j] * ps + tid % ps;
-        ok = kv_mask[static_cast<size_t>(b) * L + pos];
+      const int pos = position(j, tid);
+      m_key = pos;
+      if (pos >= 0) {
+        if (!kv_mask[static_cast<size_t>(b) * L + pos]) m_key = kMasked;
+        if (kQuant) {
+          m_ks = ksc[head_off + pos];
+          m_vs = vsc[head_off + pos];
+        }
+      } else if (kQuant) {
+        m_ks = m_vs = 0.f;
       }
-      col_pos[tid] = pos;
-      col_ok[tid] = ok;
     }
-    const size_t head_off = (static_cast<size_t>(b) * kvh + h) * L;
+  };
+  auto meta_store = [&](int st) {
+    if (tid < kBC) {
+      col_key[st][tid] = m_key;
+      if (kQuant) {
+        col_ks[st][tid] = m_ks;
+        col_vs[st][tid] = m_vs;
+      }
+    }
+  };
+
+  // This warp's rows r_loc (i = 0) and r_loc + 8 (i = 1).
+  const int r_loc = warp * 16 + lane / 4;
+  PrefillPolicy<kQuant> pol;
+  pol.scale = scale * 1.4426950408889634f;   // base-2 scores for exp2f
+  pol.window = window;
+  pol.qpos[0] = bs + (r0 + r_loc) % S;
+  pol.qpos[1] = bs + (r0 + r_loc + 8) % S;
+  attn::FwdRows<T, D> acc;
+  acc.init();
+  uint32_t qa[D / 16][4];
+
+  int j = next_live(0);
+  if (j < n_tiles) {
+    issue(j, 0);
+    meta_load(j);
+    meta_store(0);
+  }
+  // Q: the last commit group before the loop, so the first tile's wait
+  // is the one that must cover a copy issued just before it.
+  for (int i = tid; i < kBR * (D / 8); i += kThreads) {
+    const int r = i / (D / 8);
+    const int c = (i % (D / 8)) * 8;
+    const int row = r0 + r;
+    const bool ok = row < GS;
+    const T* src = ok ? q + ((static_cast<size_t>(b) * H + h * G + row / S) *
+                                 S + row % S) * D + c
+                      : q;
+    attn::cp_async16(Qs + r * LD + c, src, ok);
+  }
+  attn::cp_async_commit();
+  bool q_ready = false;
+  int st = 0;
+  while (j < n_tiles) {
+    attn::cp_async_wait<0>();     // Q and tile j have landed ...
+    __syncthreads();              // ... for every thread's copies, and
+                                  // stage st ^ 1 has been read
+    const int jn = next_live(j + 1);
+    if (jn < n_tiles) {
+      issue(jn, st ^ 1);
+      meta_load(jn);
+    }
+    if (!q_ready) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        flash::load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
+      q_ready = true;
+    }
+    const T* Kt;
+    const T* Vt;
     if constexpr (kQuant) {
-      if (tid < kBC) {
-        const int pos = col_pos[tid];
-        col_ks[tid] = pos >= 0 ? ksc[head_off + pos] : 0.f;
-        col_vs[tid] = pos >= 0 ? vsc[head_off + pos] : 0.f;
+      // Widen the stage's int8 tiles to T, 16 values a thread-step.
+      const int8_t* k8 = ring + (2 * st) * kStageElems;
+      const int8_t* v8 = ring + (2 * st + 1) * kStageElems;
+      for (int i = tid; i < 2 * kBC * kChunks; i += kThreads) {
+        const int which = i / (kBC * kChunks);
+        const int c = (i % (kBC * kChunks)) / kChunks;
+        const int e = (i % kChunks) * kVec;
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            (which ? v8 : k8) + c * LDS + e);
+        const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+        uint32_t w[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          w[u] = Elem<T>::pack(static_cast<float>(x[2 * u]),
+                               static_cast<float>(x[2 * u + 1]));
+        T* dst = (which ? Vw : Kw) + c * LD + e;
+        reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      __syncthreads();
+      Kt = Kw;
+      Vt = Vw;
+    } else {
+      Kt = ring + (2 * st) * kStageElems;
+      Vt = ring + (2 * st + 1) * kStageElems;
+    }
+    pol.key = col_key[st];
+    pol.ks = col_ks[st];
+    pol.vs = col_vs[st];
+    acc.step(qa, Kt, Vt, LD, lane, pol);
+    if (jn < n_tiles) meta_store(st ^ 1);
+    st ^= 1;
+    j = jn;
+  }
+  attn::cp_async_wait<0>();
+
+  // Rows that saw no column: add V summed over the walk's skipped tiles.
+  bool dead = false;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    dead |= r0 + r_loc + 8 * i < GS && acc.m[i] == kNegInf;
+  if (__syncthreads_or(dead)) {
+    int count = 0;
+    float sum = 0.f;
+    for (int jj = 0; jj < n_tiles; ++jj) {
+      if (live(jj)) continue;
+      for (int c = 0; c < kBC; ++c) {
+        const int pos = position(jj, c);
+        if (pos < 0) break;
+        ++count;
+        if (tid < D) {
+          const float w = kQuant ? vsc[head_off + pos] : 1.f;
+          sum += w * to_f<KT>(vc[(head_off + pos) * D + tid]);
+        }
       }
     }
-    auto cache_row = [&](int c) -> size_t {
-      const int j = j0 + c / ps;
-      if (j >= n_read) return ~static_cast<size_t>(0);
-      return (head_off + trow[j] * ps + c % ps) * D;
-    };
-    load_tile<T, D, KT>(Ks, [&](int c) -> const KT* {
-      const size_t off = cache_row(c);
-      return off == ~static_cast<size_t>(0) ? nullptr : kc + off;
-    }, tid);
-    load_tile<T, D, KT>(Vs, [&](int c) -> const KT* {
-      const size_t off = cache_row(c);
-      return off == ~static_cast<size_t>(0) ? nullptr : vc + off;
-    }, tid);
+    if (tid < D) colsum[tid] = sum;
     __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows.
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    const int t = lane % 4;
 #pragma unroll
-      for (int n = 0; n < kBC / 16; ++n) {
-        wmma::fill_fragment(acc, 0.f);
+    for (int i = 0; i < 2; ++i) {
+      if (acc.m[i] != kNegInf) continue;
+      acc.l[i] += static_cast<float>(count);
 #pragma unroll
-        for (int k = 0; k < D / 16; ++k) {
-          wmma::load_matrix_sync(a, Qs + warp * 16 * LD + k * 16, LD);
-          wmma::load_matrix_sync(kb, Ks + n * 16 * LD + k * 16, LD);
-          wmma::mma_sync(acc, a, kb, acc);
-        }
-        wmma::store_matrix_sync(Ss + warp * 16 * kLdS + n * 16, acc, kLdS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // Masked online softmax of this lane's half row.
-    {
-      float* srow = Ss + my_r * kLdS + half * 32;
-      float m_loc = kNegInf;
-      for (int c = 0; c < 32; ++c) {
-        const int col = half * 32 + c;
-        const int pos = col_pos[col];
-        const bool keep = pos >= 0 && col_ok[col] && pos <= my_qpos &&
-                          (window <= 0 || pos >= my_qpos - window + 1);
-        float sc = srow[c] * scale;
-        if constexpr (kQuant) sc *= col_ks[col];
-        sc = keep ? sc : kNegInf;
-        srow[c] = sc;
-        m_loc = fmaxf(m_loc, sc);
-      }
-      m_loc = fmaxf(m_loc, __shfl_xor_sync(0xffffffffu, m_loc, 1));
-      const float m_new = fmaxf(m, m_loc);
-      const float corr = expf(m - m_new);
-      float psum = 0.f;
-      T* prow = Ps + my_r * kLdP + half * 32;
-      for (int c = 0; c < 32; ++c) {
-        const float p =
-            col_pos[half * 32 + c] >= 0 ? expf(srow[c] - m_new) : 0.f;
-        psum += p;
-        // The value scale weighs p in PV only; l took p unscaled.
-        prow[c] = from_f<T>(kQuant ? p * col_vs[half * 32 + c] : p);
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      l = corr * l + psum;
-      m = m_new;
-      float* orow = Os + my_r * LO + half * HALF;
-      for (int c = 0; c < HALF; ++c) orow[c] *= corr;
-    }
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows.
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> pa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        float* optr = Os + warp * 16 * LO + n * 16;
-        wmma::load_matrix_sync(acc, optr, LO, wmma::mem_row_major);
-#pragma unroll
-        for (int k = 0; k < kBC / 16; ++k) {
-          wmma::load_matrix_sync(pa, Ps + warp * 16 * kLdP + k * 16, kLdP);
-          wmma::load_matrix_sync(vb, Vs + k * 16 * LD + n * 16, LD);
-          wmma::mma_sync(acc, pa, vb, acc);
-        }
-        wmma::store_matrix_sync(optr, acc, LO, wmma::mem_row_major);
+      for (int n = 0; n < D / 8; ++n) {
+        acc.o[n][2 * i] += colsum[n * 8 + 2 * t];
+        acc.o[n][2 * i + 1] += colsum[n * 8 + 2 * t + 1];
       }
     }
   }
-  __syncwarp();
 
-  const int row = r0 + my_r;
-  if (row < GS) {
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
-    const float* orow = Os + my_r * LO + half * HALF;
-    T* op = out + ((static_cast<size_t>(b) * S + row % S) * H + h * G +
-                   row / S) * D + half * HALF;
-    for (int c = 0; c < HALF; ++c) op[c] = from_f<T>(orow[c] * inv);
+  const int t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + r_loc + 8 * i;
+    if (row >= GS) continue;
+    const float l_safe = acc.l[i] == 0.f ? 1.f : acc.l[i];
+    T* orow = out + ((static_cast<size_t>(b) * S + row % S) * H + h * G +
+                     row / S) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) = Elem<T>::pack(
+          acc.o[n][2 * i] / l_safe, acc.o[n][2 * i + 1] / l_safe);
   }
 }
 
 template <typename T, typename KT, int D>
-cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
-                       const float* ksc, const float* vsc, const int* table,
-                       const int* base, const uint8_t* kv_mask, void* out,
-                       int B, int H, int S, int kvh, int L, int n_read,
-                       int ps, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
+cudaError_t launch_kernel(const void* q, const void* kc, const void* vc,
+                          const float* ksc, const float* vsc,
+                          const int* table, const int* base,
+                          const uint8_t* kv_mask, void* out, int B, int H,
+                          int S, int kvh, int L, int n_read, int ps,
+                          int window, float scale, cudaStream_t stream) {
+  using Lay = Layout<T, KT, D>;
   static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ragged_prefill_mma_kernel<T, KT, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  const cudaError_t err = flash::allow_smem(
+      ragged_prefill_kernel<T, KT, D>, Lay::bytes(kMaxPages), &configured);
+  if (err != cudaSuccess) return err;
   const int G = H / kvh;
   const dim3 grid(B * kvh, (G * S + kBR - 1) / kBR);
-  ragged_prefill_mma_kernel<T, KT, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KT*>(kc),
-      static_cast<const KT*>(vc), ksc, vsc, table, base, kv_mask,
-      static_cast<T*>(out), H, S, kvh, L, n_read, ps, window, scale);
+  ragged_prefill_kernel<T, KT, D>
+      <<<grid, kThreads, Lay::bytes(n_read), stream>>>(
+          static_cast<const T*>(q), static_cast<const KT*>(kc),
+          static_cast<const KT*>(vc), ksc, vsc, table, base, kv_mask,
+          static_cast<T*>(out), H, S, kvh, L, n_read, ps, window, scale);
   return cudaGetLastError();
 }
 
@@ -359,13 +457,13 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc,
   using KT = typename std::conditional<kQuant, int8_t, T>::type;
   switch (d) {
     case 64:
-      return launch_mma<T, KT, 64>(q, kc, vc, ksc, vsc, table, base, kv_mask,
-                                   out, B, H, S, kvh, L, n_read, ps, window,
-                                   scale, stream);
+      return launch_kernel<T, KT, 64>(q, kc, vc, ksc, vsc, table, base,
+                                      kv_mask, out, B, H, S, kvh, L, n_read,
+                                      ps, window, scale, stream);
     case 128:
-      return launch_mma<T, KT, 128>(q, kc, vc, ksc, vsc, table, base,
-                                    kv_mask, out, B, H, S, kvh, L, n_read,
-                                    ps, window, scale, stream);
+      return launch_kernel<T, KT, 128>(q, kc, vc, ksc, vsc, table, base,
+                                       kv_mask, out, B, H, S, kvh, L, n_read,
+                                       ps, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -378,7 +476,9 @@ int launch(const void* q, const void* kc, const void* vc, const float* ksc,
            int kvh, int L, int n_read, int ps, int window, float scale,
            int dtype, void* stream) {
   if (B == 0 || S == 0) return cudaSuccess;
-  if (ps <= 0 || ps > kBC || kBC % ps != 0) return cudaErrorInvalidValue;
+  if (ps <= 0 || ps > kBC || kBC % ps != 0 || n_read > kMaxPages ||
+      kvh <= 0 || H % kvh != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
@@ -399,8 +499,8 @@ int launch(const void* q, const void* kc, const void* vc, const float* ksc,
 
 // dtype (of q, the cache and out): 1 bfloat16, 2 float16; window <= 0
 // means none.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for another dtype, an unsupported head dim or a
-// page size that does not divide 64).
+// (cudaErrorInvalidValue for another dtype, an unsupported head dim, a
+// page size that does not divide 64 or a walk of more than 4096 pages).
 extern "C" int ragged_prefill_launch(const void* q, const void* kc,
                                      const void* vc, const int* table,
                                      const int* base, const uint8_t* kv_mask,

@@ -1,29 +1,39 @@
-"""Continuous-batching inference engine over a paged KV cache, in PyTorch.
+"""Continuous-batching inference engine over a KV cache, in PyTorch.
 
-Port of the synchronous, paged, chunked-prefill path of
-skypilot_tpu/infer/engine.py:ContinuousBatchingEngine:
+Port of the synchronous, chunked-prefill path of
+skypilot_tpu/infer/engine.py:ContinuousBatchingEngine, unpaged (the
+reference's default, page_size 0) and paged:
 
-  - a page pool [n_pages, kvh, page_size, hd] per layer lives across
-    requests, with a block table per slot (page 0 the null page); every
-    decode step advances all occupied slots at once, each writing its
-    token's K/V at its own depth (models/llama.py paged_slot_attention);
+  - unpaged, a contiguous slot cache [B, kvh, max_seq_len, hd] per layer
+    lives across requests, one row per slot; every decode step advances
+    all occupied slots at once, each writing its token's K/V at its own
+    depth (models/llama.py contig_slot_attention).  This path runs no
+    kernel, on the card as on the CPU: the reference's fused kernels
+    need a paged cache, so 'auto' resolves to 'xla' and 'fused' raises;
+  - paged (page_size > 0), a page pool [n_pages, kvh, page_size, hd] per
+    layer with a block table per slot (page 0 the null page) takes its
+    place (models/llama.py paged_slot_attention), read through the CUDA
+    kernels on the card;
   - a new prompt is admitted into a free slot between decode steps and
     prefilled in chunks of `prefill_chunk` tokens, one chunk per tick,
     into a private batch-1 contiguous cache at a global cursor; at the
-    end the paged insert scatters that cache into the slot's pages;
-  - with kv_cache_dtype='int8' the pools (and the prefill cache) hold
-    int8 K/V with f32 per-(kv head, position) scale pools beside them,
-    read through the kernels' int8 branches: half the bytes of a bf16
-    cache, so twice the context or the slots on one card;
+    end the insert copies that cache into the slot's row (unpaged) or
+    scatters it into the slot's pages (paged);
+  - with kv_cache_dtype='int8' the caches hold int8 K/V with f32
+    per-(kv head, position) scales beside them, read through the
+    kernels' int8 branches (or, with 'xla', the reference's int16 x int8
+    read): half the bytes of a bf16 cache, so twice the context or the
+    slots on one card;
   - per-slot temperature, top_k and top_p ride the step as [B] vectors,
     and each sampled row draws from its own torch.Generator seeded from
     (request seed, generated index) - independent of batch companions,
     the counterpart of the reference's fold_in(seed, generated) key.
 
-Attention runs through the CUDA kernels ('fused') or their plain
-PyTorch versions ('xla'); `resolve_kernels` picks, as the reference's
-table does: 'auto' is 'fused' on CUDA with a paged cache, and 'fused'
-on the CPU is a ValueError.
+Attention runs through the kernels' wrappers ('fused': the CUDA kernels
+on the card, their plain versions on the CPU) or the reference's XLA
+read in plain PyTorch ('xla'); `resolve_kernels` picks, as the
+reference's table does: 'auto' is 'fused' on CUDA with a paged cache,
+else 'xla', and 'fused' without a paged cache is a ValueError.
 
 Not ported yet (later slices): the async pipeline, speculation, mixed
 prefill budgets, disaggregated handoff, live migration, the host-RAM
@@ -48,7 +58,7 @@ from skypilot_tpu_torch import models as models_lib
 from skypilot_tpu_torch.infer import failures
 from skypilot_tpu_torch.infer import paging as paging_lib
 from skypilot_tpu_torch.models.llama import (PagedCache, PrefillCache,
-                                             resolve_kernel)
+                                             SlotCache, resolve_kernel)
 
 NEG_INF = -1e30
 
@@ -146,23 +156,22 @@ def sample_logits_rows(logits: torch.Tensor,
 
 
 def _resolve(kind: str, what: str, *, on_cuda: bool, page_size: int) -> str:
-    """The model's rule (`resolve_kernel`), plus: the kernels need a
-    paged KV cache."""
-    if not page_size:
-        if kind == 'fused':
-            raise ValueError(f"{what}='fused' requires a paged KV cache "
-                             '(page_size > 0)')
-        kind = 'xla' if kind == 'auto' else kind
-    try:
-        return resolve_kernel(kind, torch.device('cuda' if on_cuda
-                                                 else 'cpu'))
-    except ValueError as e:
-        raise ValueError(f'{what}: {e}') from None
+    """The model's rule (`resolve_kernel`: the kernels need a paged KV
+    cache), for the engine's choices 'auto', 'fused' and 'xla'."""
+    if kind not in ('auto', 'fused', 'xla'):
+        raise ValueError(f"{what} must be 'auto', 'fused' or 'xla', got "
+                         f'{kind!r}')
+    if kind == 'fused' and not page_size:
+        raise ValueError(f"{what}='fused' requires a paged KV cache "
+                         '(page_size > 0)')
+    return resolve_kernel(kind, torch.device('cuda' if on_cuda else 'cpu'),
+                          paged=bool(page_size))
 
 
 def resolve_decode_kernel(decode_kernel: str, *, on_cuda: bool,
                           page_size: int) -> str:
-    """'fused' (CUDA kernel) or 'xla' (plain PyTorch) for paged decode."""
+    """'fused' (the kernel's wrapper) or 'xla' (the reference's read in
+    plain PyTorch) for slot decode."""
     return _resolve(decode_kernel, 'decode_kernel', on_cuda=on_cuda,
                     page_size=page_size)
 
@@ -202,6 +211,18 @@ def paged_insert(cache: PagedCache, cache1: PrefillCache,
         content = src[:, 0].reshape(L, kvh, s // ps, ps, d)
         pool[:, phys] = content[:, :, :n_used].transpose(1, 2).to(pool.dtype)
     set_table(cache, table_row, slot)
+
+
+def slot_insert(cache: SlotCache, cache1: PrefillCache, slot: int) -> None:
+    """Copy the batch-1 prefill cache [L, 1, kvh, max_len, d] into the
+    slot's row of the contiguous slot cache (in place), the scale rows of
+    an int8 cache likewise: the reference's `make_insert_fn`."""
+    pairs = [(cache.key, cache1.key), (cache.value, cache1.value)]
+    if cache.key_scale is not None:
+        pairs += [(cache.key_scale, cache1.key_scale),
+                  (cache.value_scale, cache1.value_scale)]
+    for rows, src in pairs:
+        rows[:, slot] = src[:, 0]
 
 
 def set_table(cache: PagedCache, table_row: np.ndarray, slot: int) -> None:
@@ -245,14 +266,17 @@ class _PendingPrefill:
     tokens: np.ndarray        # [1, pad]
     mask_row: torch.Tensor    # [max_seq] bool on the device
     cache1: Optional[PrefillCache]
-    pages: List[int]
-    table_row: np.ndarray     # [pages_per_slot] int32, 0-filled tail
+    pages: List[int]          # empty when unpaged
+    table_row: Optional[np.ndarray]   # [pages_per_slot] int32, 0-filled
+                                      # tail; None when unpaged
     done: int = 0
     last_row: Optional[torch.Tensor] = None   # logits at the last token
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching over the paged KV-cache model."""
+    """Slot-based continuous batching over the KV-cache model: a
+    contiguous slot cache by default (page_size 0), a page pool with
+    page_size > 0."""
 
     def __init__(self, model: str = 'llama-tiny',
                  params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -263,7 +287,7 @@ class ContinuousBatchingEngine:
                  prefill_bucket: int = 64,
                  prefill_chunk: int = 0,
                  kv_read_bucket: int = 512,
-                 page_size: int = 16,
+                 page_size: int = 0,
                  max_pages: int = 0,
                  seed: int = 0,
                  decode_kernel: str = 'auto',
@@ -271,27 +295,30 @@ class ContinuousBatchingEngine:
                  kv_cache_dtype: str = 'auto',
                  device: DeviceLike = 'cuda') -> None:
         self.device = resolve_device(device)
-        if page_size <= 0 or page_size & (page_size - 1):
-            raise ValueError(f'page_size must be a power of two > 0, got '
-                             f'{page_size} (the port serves paged caches '
-                             'only)')
-        if max(1, prefill_bucket) % page_size:
+        if page_size < 0 or page_size & (page_size - 1):
+            raise ValueError(f'page_size must be 0 (unpaged) or a power of '
+                             f'two, got {page_size}')
+        if page_size and max(1, prefill_bucket) % page_size:
             raise ValueError(f'page_size ({page_size}) must divide '
                              f'prefill_bucket ({prefill_bucket})')
+        if max_pages and not page_size:
+            raise ValueError('max_pages requires page_size > 0')
         overrides = dict(model_overrides or {})
         overrides.setdefault('param_dtype', param_dtype)
         overrides.setdefault('kv_cache_dtype', kv_cache_dtype)
         if max_seq_len is not None:
             overrides['max_seq_len'] = max_seq_len
         peek = models_lib.get_config(model, **overrides)
-        if peek.max_seq_len % page_size:
-            raise ValueError(f'page_size ({page_size}) must divide '
-                             f'max_seq_len ({peek.max_seq_len})')
-        # Default pool: every slot can fill its row, +1 for the null page.
-        n_pages = max_pages if max_pages else \
-            n_slots * (peek.max_seq_len // page_size) + 1
-        overrides.setdefault('kv_page_size', page_size)
-        overrides.setdefault('kv_n_pages', n_pages)
+        if page_size:
+            if peek.max_seq_len % page_size:
+                raise ValueError(f'page_size ({page_size}) must divide '
+                                 f'max_seq_len ({peek.max_seq_len})')
+            # Default pool: every slot can fill its row, +1 for the null
+            # page.
+            n_pages = max_pages if max_pages else \
+                n_slots * (peek.max_seq_len // page_size) + 1
+            overrides.setdefault('kv_page_size', page_size)
+            overrides.setdefault('kv_n_pages', n_pages)
         self.model, self.config = models_lib.get_model(
             model, device=self.device, **overrides)
         self.model.eval()
@@ -323,9 +350,14 @@ class ContinuousBatchingEngine:
         self.prefill_bucket = max(1, prefill_bucket)
         self.prefill_chunk = prefill_chunk
         self.kv_read_bucket = kv_read_bucket
-        self._pages_per_slot = self.max_seq_len // page_size
-        self._alloc = paging_lib.PageAllocator(self.n_pages, page_size)
-        self._cache = PagedCache.zeros(self.config, n_slots, self.device)
+        self._alloc: Optional[paging_lib.PageAllocator] = None
+        self._cache: Any
+        if page_size:
+            self._pages_per_slot = self.max_seq_len // page_size
+            self._alloc = paging_lib.PageAllocator(self.n_pages, page_size)
+            self._cache = PagedCache.zeros(self.config, n_slots, self.device)
+        else:
+            self._cache = SlotCache.zeros(self.config, n_slots, self.device)
         self._last = torch.zeros((n_slots, self.config.vocab_size),
                                  dtype=torch.float32, device=self.device)
         self._kv_mask = torch.zeros((n_slots, self.max_seq_len),
@@ -354,8 +386,10 @@ class ContinuousBatchingEngine:
         pad = max(pad, true_len)
         pad = min(pad, self.max_seq_len - cfg.max_new_tokens)
         pad = max(pad, true_len)
-        need = min(-(-(pad + cfg.max_new_tokens) // self.page_size),
-                   self._pages_per_slot)
+        need = 0
+        if self.page_size:
+            need = min(-(-(pad + cfg.max_new_tokens) // self.page_size),
+                       self._pages_per_slot)
         return pad, need
 
     def submit(self, prompt_ids: Sequence[int],
@@ -382,7 +416,7 @@ class ContinuousBatchingEngine:
                 f'({cfg.max_new_tokens}) exceeds max_seq_len '
                 f'{self.max_seq_len}.')
         pad, need = self._page_need(len(prompt_ids), cfg)
-        if need > self._alloc.capacity:
+        if self._alloc is not None and need > self._alloc.capacity:
             raise ValueError(
                 f'request needs {need} KV pages (prompt padded to {pad}, '
                 f'+ max_new_tokens {cfg.max_new_tokens}, page_size '
@@ -494,11 +528,14 @@ class ContinuousBatchingEngine:
         pool cannot cover the request right now (backpressure)."""
         true_len = len(prompt)
         pad, need = self._page_need(true_len, cfg)
-        pages = self._alloc.alloc(need)
-        if pages is None:
-            return False
-        table_row = np.zeros((self._pages_per_slot,), np.int32)
-        table_row[:len(pages)] = pages
+        pages: List[int] = []
+        table_row = None
+        if self._alloc is not None:
+            pages = self._alloc.alloc(need)
+            if pages is None:
+                return False
+            table_row = np.zeros((self._pages_per_slot,), np.int32)
+            table_row[:len(pages)] = pages
         tokens = np.zeros((1, pad), np.int64)
         tokens[0, :true_len] = prompt
         mask_row = torch.zeros((self.max_seq_len,), dtype=torch.bool,
@@ -558,7 +595,11 @@ class ContinuousBatchingEngine:
         """Insert the prefilled request into its slot and make it live."""
         assert pending.last_row is not None
         slot = pending.slot_idx
-        paged_insert(self._cache, pending.cache1, pending.table_row, slot)
+        if self.page_size:
+            paged_insert(self._cache, pending.cache1, pending.table_row,
+                         slot)
+        else:
+            slot_insert(self._cache, pending.cache1, slot)
         pending.cache1 = None
         self._last[slot] = pending.last_row
         self._kv_mask[slot] = pending.mask_row
@@ -586,7 +627,8 @@ class ContinuousBatchingEngine:
     def _complete(self, slot_idx: int) -> None:
         slot = self._slots[slot_idx]
         self._release_pages(slot.pages)
-        clear_table(self._cache, slot_idx)
+        if self.page_size:
+            clear_table(self._cache, slot_idx)
         rid = slot.request_id
         with self._submit_lock:
             was_canceled = rid in self._canceled
@@ -606,7 +648,8 @@ class ContinuousBatchingEngine:
         for i, s in enumerate(self._slots):
             if s is not None and s.request_id in snapshot:
                 self._release_pages(s.pages)
-                clear_table(self._cache, i)
+                if self.page_size:
+                    clear_table(self._cache, i)
                 self._slots[i] = None
         keep = []
         for p in self._prefills:
@@ -779,7 +822,9 @@ class ContinuousBatchingEngine:
             and all(s is None for s in self._slots)
 
     def allocator_leak_report(self) -> Optional[str]:
-        return self._alloc.leak_report()
+        """None when the page pool is clean (or unpaged), else what
+        leaked."""
+        return None if self._alloc is None else self._alloc.leak_report()
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  sampling: Optional[SamplingConfig] = None

@@ -20,7 +20,13 @@ budget come later).  Serving random weights is refused unless
 Run: python -m skypilot_tpu_torch.infer.server --model llama3-8b \
          --page-size 16 --prefill-chunk 512 --allow-random-weights
      (add --kv-cache-dtype int8 for the int8 KV cache; --device cpu runs
-     the kernels' plain versions on the CPU)
+     on the CPU; the default --page-size 0 serves from a contiguous slot
+     cache with no kernel, as the reference's default does)
+
+With no argument for them, the default request deadline and the queue
+bound come from SKYTPU_REQUEST_DEADLINE_S (default 600 s) and
+SKYTPU_MAX_QUEUE_DEPTH (default 8 x max_batch_size), as the reference
+reads them.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import argparse
 import http.server
 import json
 import logging
+import os
 import threading
 import time
 from typing import Any, Dict, Mapping, Optional
@@ -41,6 +48,11 @@ logger = logging.getLogger(__name__)
 
 _GET_ROUTES = ('/health',)
 _POST_ROUTES = ('/generate',)
+# The reference's env knobs (skypilot_tpu/protocol.py ENV_CONTRACT) and
+# their defaults; the queue bound's default is 8 x max_batch_size.
+ENV_REQUEST_DEADLINE_S = 'SKYTPU_REQUEST_DEADLINE_S'
+ENV_MAX_QUEUE_DEPTH = 'SKYTPU_MAX_QUEUE_DEPTH'
+DEFAULT_REQUEST_DEADLINE_S = '600'
 
 
 class _Shed(Exception):
@@ -64,13 +76,13 @@ class InferenceServer:
                  param_dtype: Any = torch.bfloat16,
                  prefill_chunk: int = 0,
                  kv_read_bucket: int = 512,
-                 page_size: int = 16,
+                 page_size: int = 0,
                  max_pages: int = 0,
                  allow_random_weights: bool = False,
                  decode_kernel: str = 'auto',
                  prefill_kernel: str = 'auto',
                  kv_cache_dtype: str = 'auto',
-                 default_deadline_s: float = 600.0,
+                 default_deadline_s: Optional[float] = None,
                  max_queue_depth: Optional[int] = None,
                  device: DeviceLike = 'cuda') -> None:
         if params is None and not allow_random_weights:
@@ -86,9 +98,15 @@ class InferenceServer:
             prefill_kernel=prefill_kernel, kv_cache_dtype=kv_cache_dtype,
             device=device)
         self.model_name = model
-        self.default_deadline_s = float(default_deadline_s)
-        self.max_queue_depth = (max_queue_depth if max_queue_depth
-                                is not None else 8 * max_batch_size)
+        # An argument beats the env knob, which beats the default.
+        self.default_deadline_s = (
+            float(default_deadline_s) if default_deadline_s is not None
+            else float(os.environ.get(ENV_REQUEST_DEADLINE_S,
+                                      DEFAULT_REQUEST_DEADLINE_S)))
+        self.max_queue_depth = (
+            max_queue_depth if max_queue_depth is not None
+            else int(os.environ.get(ENV_MAX_QUEUE_DEPTH,
+                                    str(8 * max_batch_size))))
         # Warm the kernels and allocator before /health reports ready.
         self.engine.generate([[1, 2, 3]],
                              engine_lib.SamplingConfig(max_new_tokens=2))
@@ -259,8 +277,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help='Chunked prefill: this many prompt tokens per '
                              'tick (0 = whole prompt at admission).')
     parser.add_argument('--kv-read-bucket', type=int, default=512)
-    parser.add_argument('--page-size', type=int, default=16,
-                        help='Positions per KV page (power of two).')
+    parser.add_argument('--page-size', type=int, default=0,
+                        help='Positions per KV page (power of two); 0 = '
+                             'a contiguous slot cache (no kernel).')
     parser.add_argument('--max-pages', type=int, default=0)
     parser.add_argument('--decode-kernel', default='auto',
                         choices=['auto', 'fused', 'xla'],

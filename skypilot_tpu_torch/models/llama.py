@@ -14,13 +14,17 @@ thread-locals (`slot_mode`, `kv_read_bucket`, `decode_kernel`,
 `prefill_kernel`), the port takes explicit arguments: the cache object
 says which path runs (`PrefillCache`: the batch-1 chunked prefill at a
 global cursor; `PagedCache`: one-token slot decode against the page
-pool), `kernel` picks the CUDA kernel ('fused') or the plain PyTorch
-version ('xla', the reference's name for its oracle path), and
-`read_len` caps the cache reads.  Caches are updated in place.  With
-`kv_cache_dtype='int8'` both caches hold int8 K/V rows with f32 absmax
-scales per (kv head, position) beside them, quantized on write and
-read through the kernels' int8 branches (`ops/grouped_attention.py`
-`quantize_int8_rows`, `int8_grouped_attention`).  The
+pool; `SlotCache`: one-token slot decode against the contiguous
+[B, kvh, max_len, hd] slot rows of an unpaged engine, the reference's
+default), `kernel` picks the CUDA kernels ('fused'), their plain
+versions ('plain') or the reference's XLA read in plain PyTorch
+('xla'; see `resolve_kernel`), and `read_len` caps the cache reads.
+Caches are updated in place.  With `kv_cache_dtype='int8'` every cache
+holds int8 K/V rows with f32 absmax scales per (kv head, position)
+beside them, quantized on write (`ops/grouped_attention.py`
+`quantize_int8_rows`); the kernels read them through their int8
+branches, 'xla' through the reference's `quantized_grouped_attention`.
+The
 training forward (`Llama.train_forward`) takes no cache; it reruns each
 block in the backward pass (`remat`, through torch.utils.checkpoint)
 as the reference's `nothing_saveable` policy does.
@@ -163,6 +167,30 @@ class PrefillCache:
 
 
 @dataclasses.dataclass
+class SlotCache:
+    """Contiguous slot-decode cache of an unpaged engine (page_size 0,
+    the reference's default): K/V [L, B, kvh, max_len, hd], one row per
+    slot, each written at its own depth; an int8 cache has f32 scales
+    [L, B, kvh, max_len, 1] beside K and V."""
+    key: torch.Tensor
+    value: torch.Tensor
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
+
+    @classmethod
+    def zeros(cls, cfg: LlamaConfig, batch: int,
+              device: torch.device) -> 'SlotCache':
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.max_seq_len,
+                 cfg.head_dim)
+        return cls(*_kv_zeros(cfg, shape, device))
+
+    def nbytes(self) -> int:
+        """Bytes of the K/V rows and their scales."""
+        return sum(t.nbytes for t in (self.key, self.value, self.key_scale,
+                                      self.value_scale) if t is not None)
+
+
+@dataclasses.dataclass
 class PagedCache:
     """Paged decode cache: K/V pools [L, n_pages, kvh, ps, hd] shared by
     every slot, and each slot's block table [B, max_len // ps] int32
@@ -197,7 +225,8 @@ class PagedCache:
                                       self.value_scale) if t is not None)
 
 
-def _layer_scales(cache: Union[PrefillCache, PagedCache], layer: int
+def _layer_scales(cache: Union[PrefillCache, PagedCache, SlotCache],
+                  layer: int
                   ) -> Dict[str, Optional[torch.Tensor]]:
     """The kernels' key_scale/value_scale arguments for one layer (None
     for a float cache)."""
@@ -207,47 +236,79 @@ def _layer_scales(cache: Union[PrefillCache, PagedCache], layer: int
                 value_scale=cache.value_scale[layer])
 
 
-def resolve_kernel(kernel: str, device: torch.device) -> str:
-    """'auto' -> 'fused' (the CUDA kernels) on a CUDA device, 'xla' (the
-    plain versions) on the CPU.  'fused' on the CPU raises: the kernels
-    never run there and are never silently swapped for the plain ones."""
-    if kernel not in ('auto', 'fused', 'xla'):
-        raise ValueError(f"kernel must be 'auto', 'fused' or 'xla', got "
-                         f'{kernel!r}')
-    on_cuda = torch.device(device).type == 'cuda'
+def resolve_kernel(kernel: str, device: torch.device, *,
+                   paged: bool = True) -> str:
+    """The attention path of a forward on `device`:
+      'fused'  the kernels' wrappers: the CUDA kernels on CUDA tensors,
+               their plain versions on CPU tensors (as the reference runs
+               its fused path in interpret mode off the TPU);
+      'plain'  the kernels' plain versions on any device (what the
+               kernels are held to on the card);
+      'xla'    the reference's XLA read in plain PyTorch: the same
+               function as the kernels for a float cache; for an int8
+               cache `quantized_grouped_attention` (int16 x int8 dots),
+               about 1e-3 off the kernels' int8 formulation.
+    'auto' is 'fused' on a CUDA device with a paged cache, else 'xla'.
+    An unpaged cache (`paged` False) has no kernel, as in the reference:
+    'fused' and 'plain' raise there."""
+    if kernel not in ('auto', 'fused', 'plain', 'xla'):
+        raise ValueError(f"kernel must be 'auto', 'fused', 'plain' or "
+                         f"'xla', got {kernel!r}")
     if kernel == 'auto':
-        return 'fused' if on_cuda else 'xla'
-    if kernel == 'fused' and not on_cuda:
-        raise ValueError("kernel='fused' runs the CUDA kernels and needs "
-                         "CUDA tensors; the plain PyTorch versions are "
-                         "'xla'")
+        on_cuda = torch.device(device).type == 'cuda'
+        return 'fused' if on_cuda and paged else 'xla'
+    if kernel != 'xla' and not paged:
+        raise ValueError(f"kernel={kernel!r} needs a paged KV cache "
+                         '(kv_page_size > 0): an unpaged cache runs no '
+                         "kernel, only 'xla'")
     return kernel
 
 
-def _read_window(read_len: Optional[int], max_len: int, ps: int) -> int:
-    """Page-rounded read length: `read_len` capped at max_len."""
-    n = read_len if (read_len is not None and read_len < max_len) \
+def _read_len(read_len: Optional[int], max_len: int) -> int:
+    """The reference's read window: `read_len` capped at max_len."""
+    return read_len if (read_len is not None and read_len < max_len) \
         else max_len
-    return -(-n // ps)
+
+
+def _read_window(read_len: Optional[int], max_len: int, ps: int) -> int:
+    """The read window in pages, rounded up."""
+    return -(-_read_len(read_len, max_len) // ps)
 
 
 class PrefillPlan(NamedTuple):
     """Per-forward inputs of the chunked-prefill attention, shared by
-    every layer: the identity page walk, the validity row, the base."""
-    tbl: torch.Tensor       # [B, n_read] int32
-    vis: torch.Tensor       # [B, max_len] bool
-    base: torch.Tensor      # [B] int32, the cache cursor
+    every layer: for the kernels ('fused', 'plain') the identity page
+    walk, the validity row and the base; for 'xla' the read window and
+    its causal visibility."""
+    tbl: Optional[torch.Tensor]   # [B, n_read] int32
+    vis: Optional[torch.Tensor]   # [B, max_len] bool
+    base: Optional[torch.Tensor]  # [B] int32, the cache cursor
+    read_len: int
+    mask: Optional[torch.Tensor]  # [B|1, 1, S, read_len] bool
 
 
 def prefill_plan(cache: PrefillCache, kv_mask: Optional[torch.Tensor],
                  b: int, s: int, *, cfg: LlamaConfig,
-                 read_len: Optional[int]) -> PrefillPlan:
+                 read_len: Optional[int], kernel: str) -> PrefillPlan:
     idx = cache.cursor
     max_len = cfg.max_seq_len
     if idx + s > max_len:
         raise ValueError(f'chunk [{idx}, {idx + s}) overruns max_seq_len '
                          f'{max_len}')
     dev = cache.key.device
+    if kernel == 'xla':
+        # The reference's read: the first read_len slots, causal against
+        # the cursor (columns >= idx + s are dead, so the cap is exact).
+        n = _read_len(read_len, max_len)
+        slots = torch.arange(n, device=dev)
+        rows = idx + torch.arange(s, device=dev)
+        causal = slots[None, :] <= rows[:, None]
+        if cfg.sliding_window is not None:
+            causal &= slots[None, :] >= rows[:, None] - cfg.sliding_window + 1
+        mask = causal[None, None]
+        if kv_mask is not None:
+            mask = mask & kv_mask[:, None, None, :n]
+        return PrefillPlan(None, None, None, n, mask)
     n_read = _read_window(read_len, max_len, cfg.kv_page_size)
     tbl = torch.arange(n_read, dtype=torch.int32,
                        device=dev).expand(b, n_read).contiguous()
@@ -257,7 +318,8 @@ def prefill_plan(cache: PrefillCache, kv_mask: Optional[torch.Tensor],
         # Padded columns sit past the chunk: causally dead either way.
         vis = F.pad(vis, (0, max_len - vis.shape[1]))
     base = torch.full((b,), idx, dtype=torch.int32, device=dev)
-    return PrefillPlan(tbl, vis.contiguous(), base)
+    return PrefillPlan(tbl, vis.contiguous(), base, n_read * cfg.kv_page_size,
+                       None)
 
 
 def run_cached_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
@@ -265,14 +327,16 @@ def run_cached_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
                          plan: PrefillPlan, *, cfg: LlamaConfig,
                          kernel: str) -> torch.Tensor:
     """Chunked-prefill attention at the global cursor (the contiguous,
-    float, global-cursor branch of the reference's run_cached_attention,
-    with its ragged-prefill read): write the chunk's K/V at
-    `cache.cursor`, then attend over the identity page walk of the
-    cache with the causal mask against the cursor base.  Columns past
-    the cursor + chunk are causally dead, so the page-rounded read
-    window is exact.  An int8 cache stores quantize_int8_rows of the
-    rotated K and of V, in cfg.dtype as the reference quantizes them.
-    Returns [B, S, H, hd]."""
+    global-cursor branch of the reference's run_cached_attention): write
+    the chunk's K/V at `cache.cursor`, then attend over the cache with
+    the causal mask against the cursor base.  The kernels ('fused',
+    'plain') walk the cache as identity pages (columns past the cursor +
+    chunk are causally dead, so the page-rounded window is exact); 'xla'
+    is the reference's read (`models/llama.py:740-743`): the first
+    read_len slots through `grouped_attention`, or
+    `quantized_grouped_attention` for an int8 cache.  An int8 cache
+    stores quantize_int8_rows of the rotated K and of V, in cfg.dtype as
+    the reference quantizes them.  Returns [B, S, H, hd]."""
     s, hd = q.shape[2], q.shape[3]
     idx = cache.cursor
     k, v = k.to(cfg.dtype), v.to(cfg.dtype)
@@ -283,12 +347,29 @@ def run_cached_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
         cache.value_scale[layer][:, :, idx:idx + s] = vs
     cache.key[layer][:, :, idx:idx + s] = k
     cache.value[layer][:, :, idx:idx + s] = v
+    if kernel == 'xla':
+        return _xla_read(q, cache, layer, plan.read_len, plan.mask, cfg=cfg)
     fn = (rp.ragged_prefill_attention if kernel == 'fused'
           else rp.ragged_prefill_attention_plain)
     return fn(q, cache.key[layer], cache.value[layer], plan.tbl, plan.base,
               plan.vis, scale=hd ** -0.5, probs_dtype=cfg.dtype,
               page_size=cfg.kv_page_size, window=cfg.sliding_window,
               **_layer_scales(cache, layer))
+
+
+def _xla_read(q: torch.Tensor, cache: Union[PrefillCache, SlotCache],
+              layer: int, read_len: int, mask: torch.Tensor, *,
+              cfg: LlamaConfig) -> torch.Tensor:
+    """The reference's epilogue over the first read_len slots of a
+    contiguous cache: grouped attention, or its int8 read."""
+    keys = cache.key[layer][:, :, :read_len]
+    values = cache.value[layer][:, :, :read_len]
+    kw = dict(scale=q.shape[-1] ** -0.5, probs_dtype=cfg.dtype)
+    if cache.key_scale is None:
+        return ga.grouped_attention(q, keys, values, mask, **kw)
+    return ga.quantized_grouped_attention(
+        q, keys, cache.key_scale[layer][:, :, :read_len], values,
+        cache.value_scale[layer][:, :, :read_len], mask, **kw)
 
 
 class SlotPlan(NamedTuple):
@@ -348,17 +429,80 @@ def paged_slot_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
         scales['value_scale'][plan.phys, :, plan.off, :] = vs
     pk[plan.phys, :, plan.off, :] = k
     pv[plan.phys, :, plan.off, :] = v
+    kw = dict(scale=hd ** -0.5, probs_dtype=cfg.dtype)
+    if kernel == 'xla' and cache.key_scale is not None:
+        # The reference's int8 read (`models/llama.py:505-511`): gathered
+        # pages and scale pages through quantized_grouped_attention.
+        return ga.quantized_grouped_attention(
+            q, ga.gather_pages(pk, plan.tbl),
+            ga.gather_pages(scales['key_scale'], plan.tbl),
+            ga.gather_pages(pv, plan.tbl),
+            ga.gather_pages(scales['value_scale'], plan.tbl), plan.mask,
+            **kw)
+    # For a float cache the reference's 'xla' read is the plain version.
     fn = (pa.paged_decode_attention if kernel == 'fused'
           else pa.paged_decode_attention_plain)
-    return fn(q, pk, pv, plan.tbl, plan.mask, scale=hd ** -0.5,
-              probs_dtype=cfg.dtype, **scales)
+    return fn(q, pk, pv, plan.tbl, plan.mask, **kw, **scales)
+
+
+class ContigPlan(NamedTuple):
+    """Per-forward inputs of the one-token contiguous slot decode."""
+    rows: torch.Tensor      # [B]
+    write_pos: torch.Tensor  # [B] each row's write slot
+    read_len: int
+    mask: torch.Tensor      # [B, 1, 1, read_len] bool visibility
+
+
+def contig_slot_plan(kv_mask: torch.Tensor, *, cfg: LlamaConfig,
+                     read_len: Optional[int]) -> ContigPlan:
+    """The reference's contiguous slot branch (`models/llama.py:580` on,
+    s == 1): each row writes at its highest revealed kv_mask slot (0 for
+    a row with none); visibility is kv_mask, and the sliding window by
+    slot index relative to the write slot; reads cover the first
+    read_len slots (not page-rounded: there are no pages)."""
+    max_len = cfg.max_seq_len
+    dev = kv_mask.device
+    slots = torch.arange(max_len, device=dev)
+    write_pos = torch.where(kv_mask, slots, 0).amax(-1)
+    visible = kv_mask
+    if cfg.sliding_window is not None:
+        visible = visible & (slots[None, :] >= write_pos[:, None]
+                             - cfg.sliding_window + 1)
+    n = _read_len(read_len, max_len)
+    return ContigPlan(torch.arange(kv_mask.shape[0], device=dev), write_pos,
+                      n, visible[:, None, None, :n])
+
+
+def contig_slot_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, cache: SlotCache,
+                          plan: ContigPlan, *,
+                          cfg: LlamaConfig) -> torch.Tensor:
+    """One-token slot decode against the contiguous slot rows: write each
+    row's K/V (quantize_int8_rows of them for an int8 cache) at its write
+    slot, then the reference's read over the first read_len slots
+    (`grouped_attention` or `quantized_grouped_attention`).  There is no
+    kernel on this path, as in the reference, whose fused kernels need a
+    paged cache.  Returns [B, 1, H, hd]."""
+    if q.shape[2] != 1:
+        raise ValueError(f'slot decode takes one token per row, got '
+                         f'{q.shape[2]}')
+    k, v = k[:, :, 0, :].to(cfg.dtype), v[:, :, 0, :].to(cfg.dtype)
+    at = (plan.rows, slice(None), plan.write_pos, slice(None))
+    if cache.key_scale is not None:
+        k, ks = ga.quantize_int8_rows(k)
+        v, vs = ga.quantize_int8_rows(v)
+        cache.key_scale[layer][at] = ks
+        cache.value_scale[layer][at] = vs
+    cache.key[layer][at] = k
+    cache.value[layer][at] = v
+    return _xla_read(q, cache, layer, plan.read_len, plan.mask, cfg=cfg)
 
 
 def _train_attention(cfg: LlamaConfig, *, kernel: str):
     """The training forward's attention, `attend(q, k, v)` on [B, H|kvh,
     S, hd] -> [B, S, H, hd]: causal over the whole sequence, with
-    `cfg.sliding_window`.  'flash' runs `flash_attention` (its CUDA
-    kernels for kernel='fused', their plain versions for 'xla'),
+    `cfg.sliding_window`.  'flash' runs `flash_attention` (its kernels'
+    wrappers for kernel='fused', their plain versions otherwise),
     'reference' the plain `mha_reference` under autograd."""
     if cfg.attention_impl in ('ring', 'ulysses'):
         raise NotImplementedError(
@@ -373,7 +517,7 @@ def _train_attention(cfg: LlamaConfig, *, kernel: str):
                          "expected 'nothing' or 'save_attn'.")
     window = cfg.sliding_window
     if cfg.attention_impl == 'flash':
-        plain = kernel == 'xla'
+        plain = kernel != 'fused'
 
         def attend(q, k, v):
             return fa.flash_attention(q, k, v, None, True, window,
@@ -536,13 +680,15 @@ class Llama(nn.Module):
                 p.normal_(0.0, std, generator=generator)
 
     def hidden(self, tokens: torch.Tensor, positions: torch.Tensor,
-               cache: Union[PrefillCache, PagedCache],
+               cache: Union[PrefillCache, PagedCache, SlotCache],
                kv_mask: Optional[torch.Tensor], *, kernel: str = 'auto',
                read_len: Optional[int] = None) -> torch.Tensor:
         """Final-normed hidden states [B, S, dim]; updates `cache`.
-        `kernel` as `resolve_kernel`, on the tokens' device."""
+        `kernel` as `resolve_kernel`, on the tokens' device; a model with
+        kv_page_size 0 serves unpaged (no kernel)."""
         cfg = self.cfg
-        kernel = resolve_kernel(kernel, tokens.device)
+        kernel = resolve_kernel(kernel, tokens.device,
+                                paged=cfg.kv_page_size > 0)
         x = F.embedding(tokens, self.tok_embed).to(cfg.dtype)
         rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         # Everything the layers share is computed once per forward.
@@ -554,9 +700,18 @@ class Llama(nn.Module):
             def attend(i, q, k, v):
                 return paged_slot_attention(i, q, k, v, cache, plan, cfg=cfg,
                                             kernel=kernel)
+        elif isinstance(cache, SlotCache):
+            if kv_mask is None:
+                raise ValueError('slot decode needs kv_mask')
+            plan = contig_slot_plan(kv_mask, cfg=cfg, read_len=read_len)
+
+            def attend(i, q, k, v):
+                return contig_slot_attention(i, q, k, v, cache, plan,
+                                             cfg=cfg)
         else:
             plan = prefill_plan(cache, kv_mask, tokens.shape[0],
-                                tokens.shape[1], cfg=cfg, read_len=read_len)
+                                tokens.shape[1], cfg=cfg, read_len=read_len,
+                                kernel=kernel)
 
             def attend(i, q, k, v):
                 return run_cached_attention(i, q, k, v, cache, plan,
@@ -600,7 +755,7 @@ class Llama(nn.Module):
         return F.linear(x.float(), self.lm_head)
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
-                cache: Union[PrefillCache, PagedCache],
+                cache: Union[PrefillCache, PagedCache, SlotCache],
                 kv_mask: Optional[torch.Tensor], *, kernel: str = 'auto',
                 read_len: Optional[int] = None) -> torch.Tensor:
         return self.head(self.hidden(tokens, positions, cache, kv_mask,

@@ -8,10 +8,11 @@ folded into one contraction, `quantize_int8_rows` is the int8 KV
 cache's write, and `int8_grouped_attention` is its read as the two
 kernels compute it (int8 cast to f32, f32 dots, scales folded in).
 
-The reference's XLA int8 read (`quantized_grouped_attention`, exact
-int16 x int8 dots) is its fallback path, not a kernel's function, and
-is not ported: the kernels, and these plain versions, deviate from it
-by about 1e-3 in the logits.
+`quantized_grouped_attention` is the reference's other int8 read, the
+one its 'xla' path takes: queries and value-scaled probabilities
+quantized to int16 per row, and exact int16 x int8 dots accumulated in
+int32, wrapping as XLA's int32 dot does.  The two reads differ by about
+1e-3 in the logits; each is held to its own reference.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 NEG_INF = -1e30
 _INT8_MAX = 127.0
+_INT16_MAX = 32767.0
 # Smallest absmax a row's scale is taken from: an all-zero row gets a
 # tiny positive scale, never 0.
 _SCALE_FLOOR = 1e-8
@@ -137,3 +139,100 @@ def int8_grouped_attention(q: torch.Tensor, keys: torch.Tensor,
     out = out / torch.where(l == 0, torch.ones_like(l), l)
     return out.to(probs_dtype).reshape(b, h, sq, values.shape[-1]) \
         .transpose(1, 2)
+
+
+def _quantize_int16_rows(x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int16 absmax quantization over the last axis, the
+    activation side of the reference's integer dots (queries, value-scaled
+    probabilities): x [..., d] -> (q int16, scale f32 [..., 1]), in f32,
+    scale = max(absmax, 1e-8) / 32767, q = round(x / scale)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True),
+                        min=_SCALE_FLOOR) / _INT16_MAX
+    q = torch.clamp(torch.round(xf / scale), -_INT16_MAX, _INT16_MAX)
+    return q.to(torch.int16), scale
+
+
+def _int_dot(equation: str, a: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    """The exact integer einsum of int16 `a` and int8 `b`, accumulated in
+    int32 with two's-complement wraparound as XLA's int32 dot does;
+    returned as f32 (the reference's `.astype(float32)`).
+
+    On the CPU the sums run in int64.  CUDA matmuls take no integer
+    type, so there they run in float64, exact while every partial sum
+    stays below 2^53 (4096 positions x 32767 x 127 is about 1.7e10)."""
+    if a.is_cuda:
+        acc = torch.einsum(equation, a.double(), b.double()).to(torch.int64)
+    else:
+        acc = torch.einsum(equation, a.long(), b.long())
+    wrapped = torch.remainder(acc + 2 ** 31, 2 ** 32) - 2 ** 31
+    return wrapped.to(torch.int32).float()
+
+
+def quantized_grouped_attention(q: torch.Tensor, keys_q: torch.Tensor,
+                                key_scale: torch.Tensor,
+                                values_q: torch.Tensor,
+                                value_scale: torch.Tensor,
+                                mask: Optional[torch.Tensor], *,
+                                scale: float,
+                                probs_dtype: torch.dtype) -> torch.Tensor:
+    """`grouped_attention` against an int8 cache as the reference's XLA
+    path computes it (skypilot_tpu/ops/grouped_attention.py).
+
+    q [B, H, Sq, dk] float; keys_q [B, kvh, Sk, dk] and values_q
+    [B, kvh, Sk, dv] int8; key_scale / value_scale [B, kvh, Sk, 1] f32;
+    mask as `grouped_attention`.  q is quantized to int16 per row and
+    dotted exactly with the int8 keys (int32 accumulation); the score is
+    that dot times q's scale, the key scale and `scale`, masked to
+    -1e30, then softmax.  The probabilities times the value scale are
+    quantized to int16 per row and dotted exactly with the int8 values,
+    times their scale.  An int32 sum that passes 2^31 wraps, as in the
+    reference: a near-uniform row over more than about 516 positions of
+    int8 values near 127 does (32767 x 127 x 517 > 2^31).
+    Returns [B, Sq, H, dv] in probs_dtype.  MHA, grouped and kvh == 1
+    (latent) branches as in the reference.
+    """
+    b, h, sq, _ = q.shape
+    kvh = keys_q.shape[1]
+    if h % kvh:
+        raise ValueError(
+            f'query heads ({h}) not divisible by kv heads ({kvh})')
+    dv = values_q.shape[-1]
+    if kvh == h:
+        qq, qs = _quantize_int16_rows(q)
+        scores = _int_dot('bhqd,bhkd->bhqk', qq, keys_q)
+        scores = scores * qs * key_scale[:, :, None, :, 0] * scale
+        if mask is not None:
+            scores = torch.where(mask, scores, scores.new_tensor(NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        pscaled = probs * value_scale[:, :, None, :, 0]
+        pq, ps = _quantize_int16_rows(pscaled)
+        out = _int_dot('bhqk,bhkd->bhqd', pq, values_q) * ps
+    elif kvh == 1:
+        qq, qs = _quantize_int16_rows(q)
+        scores = _int_dot('bhqd,bkd->bhqk', qq, keys_q[:, 0])
+        ks = key_scale[:, 0, :, 0][:, None, None, :]
+        scores = scores * qs * ks * scale
+        if mask is not None:
+            scores = torch.where(mask, scores, scores.new_tensor(NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        pscaled = probs * value_scale[:, 0, :, 0][:, None, None, :]
+        pq, ps = _quantize_int16_rows(pscaled)
+        out = _int_dot('bhqk,bkd->bhqd', pq, values_q[:, 0]) * ps
+    else:
+        g = h // kvh
+        qg = q.reshape(b, kvh, g, sq, q.shape[-1])
+        qq, qs = _quantize_int16_rows(qg)
+        scores = _int_dot('bngqd,bnkd->bngqk', qq, keys_q)
+        scores = scores * qs * key_scale[:, :, None, None, :, 0] * scale
+        if mask is not None:
+            scores = torch.where(mask[:, :, None], scores,
+                                 scores.new_tensor(NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        pscaled = probs * value_scale[:, :, None, None, :, 0]
+        pq, ps = _quantize_int16_rows(pscaled)
+        out = _int_dot('bngqk,bnkd->bngqd', pq, values_q) * ps
+        out = out.reshape(b, h, sq, dv)
+    return out.to(probs_dtype).transpose(1, 2)

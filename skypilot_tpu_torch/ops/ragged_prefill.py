@@ -28,6 +28,8 @@ launches_int8 = 0
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float16)
+# The kernel holds a row's page table in shared memory.
+_MAX_PAGES = 4096
 # ragged_prefill_launch(pointers..., ints..., scale, dtype code, stream).
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -151,6 +153,9 @@ def _launch(q, keys, values, table, base, kv_mask, *, scale, probs_dtype,
         raise ValueError(f'ragged_prefill_attention kernel takes head_dim '
                          f'in {_SUPPORTED_D} and a page_size dividing 64, '
                          f'got {d} and {ps}')
+    if n_read > _MAX_PAGES:
+        raise ValueError(f'ragged_prefill_attention kernel walks at most '
+                         f'{_MAX_PAGES} pages, got {n_read}')
     cache_dtype = q.dtype if scales is None else torch.int8
     if not (q.dtype == probs_dtype and keys.dtype == cache_dtype
             and values.dtype == cache_dtype):

@@ -53,17 +53,18 @@ U_BF16 = 2.0 ** -8
 F32_SLACK = 2.0 ** -12
 
 
-def _assert_within_rounding(got, plain, args, kw, *, probs_rounded):
-    """`got` (a bf16 kernel output) against `plain` run at f32 on the
-    same values: within the kernel's rounding bound (module docstring).
-    args[2] is the values tensor."""
+def _assert_within_rounding(got, plain, args, kw, *, probs_rounded,
+                            u=U_BF16):
+    """`got` (a bf16 kernel output; f16 with u = 2^-11) against `plain`
+    run at f32 on the same values: within the kernel's rounding bound
+    (module docstring).  args[2] is the values tensor."""
     args32 = [a.float() if a.is_floating_point() else a for a in args]
     kw32 = dict(kw, probs_dtype=torch.float32)
     want = plain(*args32, **kw32).float()
     absv = plain(*args32[:2], args32[2].abs(), *args32[3:], **kw32).float()
-    tol = U_BF16 * want.abs() + F32_SLACK * absv
+    tol = u * want.abs() + F32_SLACK * absv
     if probs_rounded:
-        tol += U_BF16 * absv
+        tol += u * absv
     err = (got.float() - want).abs()
     assert torch.isfinite(got).all()
     # An element with no bound (an exact zero, e.g. a query that sees one
@@ -255,6 +256,74 @@ def test_ragged_prefill_int8_kernel_matches_plain(dev, bases, s, h, kvh, d,
     assert got.shape == (len(bases), s, h, d) and got.dtype == dtype
     _assert_within_rounding(got, rp.ragged_prefill_attention_plain, case,
                             kw, probs_rounded=True)
+
+
+# Cases the prefill kernel's tiling can get wrong: (bases, S, H, kvh, d,
+# page size, kv_mask true lengths, window, dtype, permuted table, first
+# visible position).  A permuted table walks the cache's pages out of
+# order (visibility follows the physical positions, as in the plain
+# version); `visible_from` hides every position below it, so the rows
+# before it see no column at all and must average V over the whole walk.
+PREFILL_EDGES = {
+    's200': ([300], 200, 8, 2, 128, 16, [480], None, 'bf16', False, 0),
+    'window1024': ([1536], 512, 32, 8, 128, 16, [3000], 1024, 'bf16', False,
+                   0),
+    'permuted_table': ([37], 100, 8, 2, 128, 16, [512], None, 'bf16', True,
+                       0),
+    'd64': ([64], 128, 8, 8, 64, 16, [192], None, 'bf16', False, 0),
+    'f16': ([96, 7], 130, 8, 2, 128, 16, [300, 200], None, 'f16', False, 0),
+    'ps8': ([40], 96, 8, 2, 128, 8, [150], None, 'bf16', False, 0),
+    'ps32': ([64], 96, 8, 2, 128, 32, [400], 70, 'bf16', False, 0),
+    'no_visible_column': ([0], 64, 4, 2, 128, 16, [512], None, 'bf16', False,
+                          40),
+    'base_mid_page': ([1541], 77, 8, 2, 128, 16, [2000], None, 'f16', True,
+                      0),
+}
+
+
+def _prefill_edge(dev, name, quant):
+    (bases, s, h, kvh, d, ps, true_lens, window, dt, permute,
+     visible_from) = PREFILL_EDGES[name]
+    dtype = torch.float16 if dt == 'f16' else torch.bfloat16
+    L = 4096 if s == 512 else 512
+    q, k, v, table, base, kvm = _prefill_case(
+        dev, torch.float32, bases=bases, s=s, h=h, kvh=kvh, d=d, ps=ps, L=L,
+        true_lens=true_lens, seed=len(name))
+    # Read the whole cache, so the walk reaches past every row's last
+    # visible column and the kernel skips tiles.
+    n_read = L // ps
+    g = torch.Generator().manual_seed(7)
+    walk = (torch.randperm(n_read, generator=g) if permute
+            else torch.arange(n_read))
+    table = walk.to(torch.int32).expand(len(bases), n_read).contiguous()
+    kvm[:, :visible_from] = False
+    scales = {}
+    if quant:
+        k, ks = _quantized(k, False)
+        v, vs = _quantized(v, False)
+        scales = dict(key_scale=ks, value_scale=vs)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    case = (q.to(dtype), k, v, table.to(dev), base, kvm)
+    return case, dtype, dict(scale=d ** -0.5, page_size=ps, window=window,
+                             **scales)
+
+
+@pytest.mark.parametrize('quant', [False, True], ids=['float', 'int8'])
+@pytest.mark.parametrize('name', list(PREFILL_EDGES))
+def test_ragged_prefill_kernel_edge_cases(dev, name, quant):
+    case, dtype, kw = _prefill_edge(dev, name, quant)
+    before = (rp.launches, rp.launches_int8)
+    got = rp.ragged_prefill_attention(*case, probs_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert (rp.launches, rp.launches_int8) == (
+        before[0] + (not quant), before[1] + quant)
+    b, _, s, d = case[0].shape
+    assert got.shape == (b, s, case[0].shape[1], d) and got.dtype == dtype
+    _assert_within_rounding(got, rp.ragged_prefill_attention_plain, case,
+                            kw, probs_rounded=True,
+                            u=2.0 ** -11 if dtype == torch.float16
+                            else U_BF16)
 
 
 def test_int8_wrappers_raise_instead_of_falling_back(dev):

@@ -24,6 +24,8 @@ from skypilot_tpu_torch import bridge
 from skypilot_tpu_torch.infer import engine as teng
 from skypilot_tpu_torch.infer import paging as tpaging
 from skypilot_tpu_torch.infer import server as tserver
+from skypilot_tpu_torch.ops import paged_attention as tpa
+from skypilot_tpu_torch.ops import ragged_prefill as trp
 
 OV = dict(n_layers=2, n_heads=4, n_kv_heads=2, dim=64, ffn_dim=128,
           vocab_size=96, max_seq_len=64, dtype='float32')
@@ -218,9 +220,11 @@ def test_sample_logits_rows_distribution():
     ('auto', 'auto', True, 8, ('fused', 'fused')),
     ('auto', 'auto', True, 0, ('xla', 'xla')),
     ('xla', 'fused', True, 8, ('xla', 'fused')),
-    ('fused', 'auto', False, 8, ValueError),
-    ('auto', 'fused', False, 8, ValueError),
+    ('fused', 'auto', False, 8, ('fused', 'xla')),
+    ('auto', 'fused', False, 8, ('xla', 'fused')),
     ('fused', 'xla', True, 0, ValueError),
+    ('xla', 'fused', False, 0, ValueError),
+    ('plain', 'xla', True, 8, ValueError),
     ('bogus', 'xla', True, 8, ValueError),
 ])
 def test_resolve_kernels(decode, prefill, on_cuda, page_size, want):
@@ -235,9 +239,20 @@ def test_resolve_kernels(decode, prefill, on_cuda, page_size, want):
 
 
 def test_fused_on_cpu_is_refused(reference):
-    _, sd, _, _ = reference
+    """'fused' on the CPU is refused where there is no kernel (an
+    unpaged cache, as in the reference); on a paged engine it runs the
+    kernels' wrappers, which take their plain versions for CPU tensors
+    (the reference's interpret mode), and the greedy streams stay the
+    reference's."""
+    _, sd, prompts, streams = reference
     with pytest.raises(ValueError, match='fused'):
-        _port_engine(sd, decode_kernel='fused')
+        _port_engine(sd, page_size=0, decode_kernel='fused')
+    te = _port_engine(sd, decode_kernel='fused', prefill_kernel='fused')
+    assert (te.decode_kernel, te.prefill_kernel) == ('fused', 'fused')
+    before = (tpa.launches, trp.launches)
+    assert te.generate(prompts[:1], teng.SamplingConfig(
+        max_new_tokens=NEW)) == streams[:1]
+    assert (tpa.launches, trp.launches) == before
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():

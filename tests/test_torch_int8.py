@@ -8,12 +8,18 @@ Four levels, the same numpy inputs through both packages:
      interpret=True)`).
   3. The plain int8 ragged prefill against the Pallas kernel's quant
      branch (`ragged_prefill_attention(..., interpret=True)`).
-  4. The port's int8 engine (which runs the plain versions on the CPU)
-     against a JAX ContinuousBatchingEngine(kv_cache_dtype='int8',
+  4. The port's int8 engine with decode_kernel='fused' and
+     prefill_kernel='fused' (the kernels' wrappers, which run their plain
+     versions for CPU tensors) against a JAX
+     ContinuousBatchingEngine(kv_cache_dtype='int8',
      decode_kernel='fused', prefill_kernel='fused') in interpret mode,
      which computes the same function as the kernels: identical greedy
      streams, and the same pools after generation; then the server over
      a real socket and the CLI flag.
+  5. `quantized_grouped_attention`, the reference's other int8 read (its
+     'xla' path: int16 x int8 dots with int32 accumulation), against the
+     JAX function in its MHA, grouped and kvh == 1 branches, and a row
+     whose int32 PV sum passes 2^31 and wraps in both.
 
 Tolerances.  Levels 2 and 3 at f32: 1e-5 relative to each element plus
 1e-5 of the output's largest magnitude (both sides do f32 dots of at
@@ -291,8 +297,8 @@ def _jax_pools(je):
 
 def test_int8_engine_matches_jax_fused(reference):
     je, sd, prompts, streams = reference
-    te = _port_engine(sd)
-    assert (te.decode_kernel, te.prefill_kernel) == ('xla', 'xla')
+    te = _port_engine(sd, decode_kernel='fused', prefill_kernel='fused')
+    assert (te.decode_kernel, te.prefill_kernel) == ('fused', 'fused')
     assert te.kv_cache_dtype == 'int8'
     before = (tpa.launches, tpa.launches_int8, trp.launches,
               trp.launches_int8)
@@ -346,7 +352,8 @@ def test_int8_server_greedy_over_socket(reference):
     srv = tserver.InferenceServer(
         model='llama-tiny', port=0, host='127.0.0.1', max_batch_size=2,
         model_overrides=OV, params=sd, param_dtype=torch.float32,
-        prefill_chunk=8, page_size=8, kv_cache_dtype='int8', device='cpu')
+        prefill_chunk=8, page_size=8, kv_cache_dtype='int8',
+        decode_kernel='fused', prefill_kernel='fused', device='cpu')
     assert srv.engine.kv_cache_dtype == 'int8'
     srv.start()
     t = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -378,3 +385,81 @@ def test_kv_cache_dtype_flag_and_validation():
                                 kv_cache_dtype='fp8', device='cpu')
     with pytest.raises(ValueError, match='kv_cache_dtype'):
         tllama.get_config('llama-tiny', kv_cache_dtype='fp8')
+
+
+# -- 5. the reference's XLA int8 read ----------------------------------------
+_QGA_TOL = 1e-4
+
+
+def _qga_case(seed, b, h, kvh, sq, sk, masked):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, sq, _D).astype(np.float32)
+    k, ks = _int8_pool(rng, (b, kvh, sk, _D), False)
+    v, vs = _int8_pool(rng, (b, kvh, sk, _D), False)
+    mask = None
+    if masked:
+        # Causal over the last sq of sk positions, with a padded prefix
+        # hidden in one row; [B, 1, Sq, Sk] as run_cached_attention builds.
+        cols = np.arange(sk)[None, :]
+        rows = (sk - sq + np.arange(sq))[:, None]
+        mask = np.broadcast_to(cols <= rows, (b, 1, sq, sk)).copy()
+        mask[0, :, :, :3] = False
+    return q, k, ks, v, vs, mask
+
+
+@pytest.mark.parametrize('h,kvh', [(4, 4), (4, 2), (4, 1)],
+                         ids=['mha', 'grouped', 'latent'])
+@pytest.mark.parametrize('sq,masked', [(1, False), (5, True)],
+                         ids=['decode', 'masked_chunk'])
+def test_quantized_grouped_attention_matches_jax(h, kvh, sq, masked):
+    """At f32, within 1e-4 of the output's largest magnitude: both sides
+    take exact integer dots, but a probability a few f32 ulps apart
+    across the two packages (their softmaxes sum in other orders) can
+    requantize to the neighbouring int16, one step of 1/32767 of its
+    row's largest weight."""
+    q, k, ks, v, vs, mask = _qga_case(h * 10 + kvh + sq, 2, h, kvh, sq, 24,
+                                      masked)
+    jm = None if mask is None else jnp.asarray(mask)
+    want = np.asarray(jga.quantized_grouped_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(ks), jnp.asarray(v),
+        jnp.asarray(vs), jm, scale=_D ** -0.5, probs_dtype=jnp.float32))
+    got = tga.quantized_grouped_attention(
+        _t(q), _t(k), _t(ks), _t(v), _t(vs),
+        None if mask is None else _t(mask), scale=_D ** -0.5,
+        probs_dtype=torch.float32)
+    assert got.shape == want.shape == (2, sq, h, _D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=_QGA_TOL * float(np.abs(want).max()))
+    # The kernels' int8 formulation is another function, about 1e-3 off.
+    other = tga.int8_grouped_attention(
+        _t(q), _t(k), _t(v), _t(ks), _t(vs),
+        None if mask is None else _t(mask), scale=_D ** -0.5,
+        probs_dtype=torch.float32)
+    assert not torch.equal(other, got)
+
+
+def test_quantized_grouped_attention_wraps_like_jax():
+    """A uniform row over 600 positions of int8 values 127: every int16
+    probability is 32767, so the PV sum 600 x 32767 x 127 passes 2^31
+    and the reference's int32 dot wraps to a negative output.  The port
+    reproduces the wrap exactly; the kernels' formulation gives 127."""
+    n = 600
+    q = np.zeros((1, 2, 1, _D), np.float32)
+    k = np.ones((1, 1, n, _D), np.int8)
+    v = np.full((1, 1, n, _D), 127, np.int8)
+    v[..., 1] = -7          # a column that stays far from the wrap
+    s = np.ones((1, 1, n, 1), np.float32)
+    want = np.asarray(jga.quantized_grouped_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(s), jnp.asarray(v),
+        jnp.asarray(s), None, scale=1.0, probs_dtype=jnp.float32))
+    got = tga.quantized_grouped_attention(
+        _t(q), _t(k), _t(s), _t(v), _t(s), None, scale=1.0,
+        probs_dtype=torch.float32)
+    wrapped = (n * 32767 * 127 - 2 ** 32) / (32767 * n)
+    np.testing.assert_allclose(want[..., 0], wrapped, rtol=1e-6)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_allclose(got[..., 1].numpy(), -7.0, rtol=1e-6)
+    kernels = tga.int8_grouped_attention(
+        _t(q), _t(k), _t(v), _t(s), _t(s), None, scale=1.0,
+        probs_dtype=torch.float32)
+    np.testing.assert_allclose(kernels[..., 0].numpy(), 127.0, rtol=1e-6)

@@ -8,6 +8,7 @@ cursor base > 0) and one paged decode step over a shuffled page pool.
 Logits must agree to 1e-4 absolute (f32, logits of magnitude ~1, summed
 over a few hundred terms per layer).
 """
+import dataclasses
 import inspect
 
 import jax
@@ -22,6 +23,8 @@ from skypilot_tpu.parallel import sharding
 from skypilot_tpu_torch import bridge
 from skypilot_tpu_torch.infer import engine as teng
 from skypilot_tpu_torch.models import llama as tllama
+from skypilot_tpu_torch.ops import paged_attention as tpa
+from skypilot_tpu_torch.ops import ragged_prefill as trp
 
 OV = dict(n_layers=2, n_heads=4, n_kv_heads=2, dim=64, ffn_dim=128,
           vocab_size=96, max_seq_len=64, dtype='float32')
@@ -162,16 +165,35 @@ def test_paged_decode_step_logits_match(models):
 def test_default_kernel_follows_the_device(device, want):
     for fn in (tllama.Llama.forward, tllama.Llama.hidden):
         assert inspect.signature(fn).parameters['kernel'].default == 'auto'
-    assert tllama.resolve_kernel('auto', torch.device(device)) == want
-    assert tllama.resolve_kernel('xla', torch.device(device)) == 'xla'
+    dev = torch.device(device)
+    assert tllama.resolve_kernel('auto', dev) == want
+    assert tllama.resolve_kernel('auto', dev, paged=False) == 'xla'
+    for kernel in ('fused', 'plain', 'xla'):
+        assert tllama.resolve_kernel(kernel, dev) == kernel
+    for kernel in ('fused', 'plain'):
+        with pytest.raises(ValueError, match='paged'):
+            tllama.resolve_kernel(kernel, dev, paged=False)
 
 
 def test_fused_kernel_on_cpu_tensors_raises(models):
+    """kernel='fused' raises where there is no kernel (an unpaged
+    model); on CPU tensors of a paged one the wrappers run their plain
+    versions (launch counts unmoved), the same function as 'xla'."""
     _, _, tmodel, tcfg = models
-    cache = tllama.PrefillCache.zeros(tcfg, 1, torch.device('cpu'))
-    with pytest.raises(ValueError, match='CUDA'):
-        tmodel(torch.zeros((1, 8), dtype=torch.long),
-               torch.arange(8)[None], cache, None, kernel='fused')
+    cpu = torch.device('cpu')
+    tok, pos = torch.arange(8)[None], torch.arange(8)[None]
+    unpaged = tllama.Llama(dataclasses.replace(tcfg, kv_page_size=0,
+                                               kv_n_pages=0), cpu)
+    with pytest.raises(ValueError, match='paged'):
+        unpaged(tok, pos, tllama.PrefillCache.zeros(unpaged.cfg, 1, cpu),
+                None, kernel='fused')
+    before = (tpa.launches, trp.launches)
+    got = tmodel(tok, pos, tllama.PrefillCache.zeros(tcfg, 1, cpu), None,
+                 kernel='fused')
+    want = tmodel(tok, pos, tllama.PrefillCache.zeros(tcfg, 1, cpu), None,
+                  kernel='xla')
+    assert (tpa.launches, trp.launches) == before
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
 
 
 def test_rope_matches_jax():

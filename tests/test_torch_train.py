@@ -33,6 +33,7 @@ from skypilot_tpu.train import data as jdata
 from skypilot_tpu.train import trainer as jtrainer
 from skypilot_tpu_torch import bridge
 from skypilot_tpu_torch.models import llama as tllama
+from skypilot_tpu_torch.ops import flash_attention as tfa
 from skypilot_tpu_torch.train import __main__ as tmain
 from skypilot_tpu_torch.train import data as tdata
 from skypilot_tpu_torch.train import trainer as ttrainer
@@ -276,11 +277,16 @@ def test_unported_model_options_raise():
             tllama.Llama(cfg, CPU).train_forward(tok)
     with pytest.raises(ValueError, match='ROADMAP'):
         tmain.main(['--device', 'cpu', '--checkpoint-dir', '/nonexistent'])
-    # The kernels never run on CPU tensors, and are never swapped for
-    # the plain versions silently.
-    with pytest.raises(ValueError, match='CUDA'):
-        tllama.Llama(tllama.get_config('llama-tiny'), CPU).train_forward(
-            tok, kernel='fused')
+    # kernel='fused' on CPU tensors runs the flash wrappers, which take
+    # their plain versions there and launch nothing.
+    model = tllama.Llama(tllama.get_config('llama-tiny'), CPU)
+    model.init_weights(torch.Generator().manual_seed(0))
+    before = (tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches)
+    with torch.no_grad():
+        got = model.train_forward(tok, kernel='fused')
+        want = model.train_forward(tok, kernel='xla')
+    assert (tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches) == before
+    assert torch.equal(got, want)
 
 
 def test_training_entry_points_need_cuda_unless_cpu_is_asked():
