@@ -38,9 +38,9 @@ Phases, any failure exits non-zero:
                output (out, lse, dq, dk, dv) against the plain versions
                run at f32 on the same values, within
                `flash_attention.rounding_bounds`; times of the kernels,
-               the plain versions (bf16 inputs) and SDPA (forward, and
-               forward + backward through autograd for the backward
-               pair; K/V repeated to H heads beforehand) at the training
+               the plain versions (bf16 inputs) and SDPA (its forward,
+               and its backward alone over one saved forward for dq and
+               dk/dv; K/V repeated to H heads beforehand) at the training
                shape.
   4. serve   - start the port's InferenceServer on llama3-8b at full width
                and depth (random bf16 weights from a seed; page 16,
@@ -278,7 +278,8 @@ def phase_build() -> None:
     for name, (path, report) in sorted(built.items()):
         log(f'build {name}: {path.name}')
         for line in report.splitlines():
-            if 'registers' in line or 'spill' in line or 'smem' in line:
+            if ('registers' in line or 'spill' in line or 'smem' in line
+                    or line.startswith('nvcc ')):
                 log(f'  {line.strip()}')
 
 
@@ -597,19 +598,28 @@ def _flash_case(dev, seed, case, b, h, kvh, s, d, window):
         'flash_bwd_dkv': (time_ms(lambda: fa.flash_bwd_dkv(
             q, k, v, do, lse, delta, **kw)), plain_bwd),
     }
-    # SDPA as the yardstick (the port never calls it), K/V repeated to
-    # H heads beforehand.
+    lib_f, lib_b = sdpa_times(q, k, v, do, kw['scale'])
+    log(f'flash train: sdpa forward {lib_f:.4f} ms, backward alone '
+        f'{lib_b:.4f} ms (autograd.grad over one saved forward); the '
+        'plain backward computes dq, dk and dv together')
+    return errs, times, dict(zip(FLASH_KERNELS, (lib_f, lib_b, lib_b)))
+
+
+def sdpa_times(q, k, v, do, scale):
+    """(forward ms, backward-alone ms) of causal SDPA on the flash
+    kernels' inputs, K/V repeated to H heads beforehand: the library
+    yardsticks of the forward and of the dq and dk/dv passes (the port
+    never calls SDPA).  The backward is torch.autograd.grad over one
+    saved forward, its graph retained between calls."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    krep, vrep = (x.repeat_interleave(h // kvh, dim=1) for x in (k, v))
-    lib_f = time_ms(lambda: sdpa(q, krep, vrep, is_causal=True,
-                                 scale=kw['scale']))
+    g = q.shape[1] // k.shape[1]
+    krep, vrep = (x.repeat_interleave(g, dim=1) for x in (k, v))
+    fwd = time_ms(lambda: sdpa(q, krep, vrep, is_causal=True, scale=scale))
     leaves = [x.detach().requires_grad_() for x in (q, krep, vrep)]
-    lib_fb = time_ms(lambda: torch.autograd.grad(
-        sdpa(*leaves, is_causal=True, scale=kw['scale']), leaves, do))
-    log(f'flash train: sdpa forward {lib_f:.4f} ms, forward + backward '
-        f'{lib_fb:.4f} ms (backward alone about {lib_fb - lib_f:.4f} ms); '
-        'the plain backward computes dq, dk and dv together')
-    return errs, times, dict(zip(FLASH_KERNELS, (lib_f, lib_fb, lib_fb)))
+    out = sdpa(*leaves, is_causal=True, scale=scale)
+    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                              retain_graph=True))
+    return fwd, bwd
 
 
 def phase_flash_kernels(dev) -> dict:

@@ -13,8 +13,11 @@ batches).  The unchanged copy runs first as the control and must pass
 the kernel check; every fault must fail it.  Prints one JSON line per
 run (the fault, whether the kernel check failed and the check line that
 failed it, the train step's gaps and whether they break chip_smoke.py's
-limits) and exits 0 only when the control passes and every fault fails
-the kernel check.  Needs one NVIDIA card.
+limits, and the run's seconds; a fault that ends in a CUDA error fails
+the check, and its run reports the error instead of the gaps; a run
+that hangs past RUN_TIMEOUT_S is stopped and fails it too) and exits 0
+only when the control passes and every fault fails the kernel check.
+Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -24,24 +27,46 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, 'skypilot_tpu_torch', '_build', 'faults')
+# A sound run takes about 30 s on an H100.
+RUN_TIMEOUT_S = 150
 
-# (name, source file under csrc/, the line as it is, the line planted)
+# (name, source file under csrc/, the text as it is, the text planted)
 FAULTS = (
     ('causal_tile_bound_one_short', 'flash_fwd.cu',
-     'const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBK;',
-     'const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBK - 1;'),
+     'const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBN;',
+     'const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBN - 1;'),
     ('dkv_misses_a_group_member', 'flash_bwd.cu',
-     'for (int gi = 0; gi < G; ++gi) {',
-     'for (int gi = 1; gi < G; ++gi) {'),
+     'const int n_items = G * nq;',
+     'const int n_items = (G - 1) * nq;'),
     ('dq_without_delta', 'flash_bwd.cu',
      's[n][e] = p * (dp[n][e] - row_delta[e / 2]) * scale;',
      's[n][e] = p * dp[n][e] * scale;'),
     ('fwd_scale_1pct_high', 'flash_fwd.cu',
-     '? s[n][e] * scale',
-     '? s[n][e] * (scale * 1.01f)'),
+     'window, offset, scale * kLog2e);',
+     'window, offset, scale * kLog2e * 1.01f);'),
+    # What the redesign added: the unmasked path, the mbarrier phases of
+    # the TMA ring (the consumers stop waiting after the first round and
+    # the producer, a phase behind, waits for ever: the run hangs), lse
+    # in natural-log units, the dk/dv item stream and its cp.async ring.
+    ('fwd_diagonal_tile_unmasked', 'flash_fwd.cu',
+     '(causal && (k0 + kBN - 1 > wpos_lo ||',
+     '(causal && (k0 > wpos_hi ||'),
+    ('fwd_phase_bit_not_flipped', 'flash_fwd.cu',
+     'const uint32_t ph = (n / kStages) & 1;',
+     'const uint32_t ph = 0;'),
+    ('fwd_lse_left_in_base_2', 'flash_fwd.cu',
+     ': (m[i] + log2f(l_safe)) * kLn2;',
+     ': m[i] + log2f(l_safe);'),
+    ('dkv_stream_q_tile_off_by_one', 'flash_bwd.cu',
+     'const int q0 = (i_lo + n % nq) * kBQ2;  // item n\'s q tile, copied',
+     'const int q0 = (i_lo + n % nq + 1) * kBQ2;'),
+    ('dkv_ring_refills_the_stage_in_use', 'flash_bwd.cu',
+     'if (n + 1 < n_items) issue(n + 1, st ^ 1);',
+     'if (n + 1 < n_items) issue(n + 1, st);'),
 )
 
 _RUN = ('import json, gc, torch, chip_smoke as c\n'
@@ -49,16 +74,21 @@ _RUN = ('import json, gc, torch, chip_smoke as c\n'
         'c.phase_device()\n'
         '_build.build(["flash_fwd", "flash_bwd"])\n'
         'dev = torch.device("cuda")\n'
+        'gaps, crashed = None, None\n'
         'try:\n'
         '    c.phase_flash_kernels(dev)\n'
         '    failed = False\n'
         'except AssertionError:\n'
         '    failed = True\n'
-        'gc.collect(); torch.cuda.empty_cache()\n'
-        'gaps = c.train_gaps(dev)[2]\n'
+        'except RuntimeError as e:  # a CUDA error: the run cannot go on\n'
+        '    failed, crashed = True, str(e).splitlines()[0]\n'
+        'if crashed is None:\n'
+        '    gc.collect(); torch.cuda.empty_cache()\n'
+        '    gaps = c.train_gaps(dev)[2]\n'
         'print("FAULT_RESULT " + json.dumps({\n'
-        '    "kernel_check_failed": failed, "train_gaps": gaps,\n'
-        '    "train_check_failed": any(\n'
+        '    "kernel_check_failed": failed, "crashed": crashed,\n'
+        '    "train_gaps": gaps,\n'
+        '    "train_check_failed": None if gaps is None else any(\n'
         '        not (lg <= c.TRAIN_LOSS_REL_TOL\n'
         '             and ng <= c.TRAIN_GNORM_REL_TOL)\n'
         '        for lg, ng in gaps)}))\n')
@@ -88,9 +118,19 @@ def _plant(tree: str, src: str, old: str, new: str) -> None:
 
 def _check(name: str, tree: str) -> bool:
     """Runs the checks in `tree`; returns whether the kernel check
-    failed.  A run that ends without its result line raises."""
-    proc = subprocess.run([sys.executable, '-c', _RUN], cwd=tree,
-                          capture_output=True, text=True, timeout=900)
+    failed.  A run that outlasts RUN_TIMEOUT_S has hung, which fails the
+    check (chip_smoke.py would not end either); any other run that ends
+    without its result line raises."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, '-c', _RUN], cwd=tree,
+                              capture_output=True, text=True,
+                              timeout=RUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        print(json.dumps({'fault': name, 'kernel_check_failed': True,
+                          'hung': True, 'seconds': RUN_TIMEOUT_S}),
+              flush=True)
+        return True
     lines = proc.stdout.splitlines()
     result = next((json.loads(ln.split(' ', 1)[1]) for ln in lines
                    if ln.startswith('FAULT_RESULT ')), None)
@@ -100,7 +140,8 @@ def _check(name: str, tree: str) -> bool:
     failed = result['kernel_check_failed']
     failed_at = next((ln for ln in lines if (m := _WORST.search(ln))
                       and float(m.group(1)) > 1.0), None)
-    print(json.dumps({'fault': name, **result, 'at': failed_at}),
+    print(json.dumps({'fault': name, **result, 'at': failed_at,
+                      'seconds': round(time.perf_counter() - t0, 1)}),
           flush=True)
     return failed
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a serving or training step's time goes in the PyTorch/H100 port.
 
-    python3 scripts/port_profile.py [--trace-dir DIR]
+    python3 scripts/port_profile.py [--trace-dir DIR] [--windows train]
 
 Builds the port's ContinuousBatchingEngine on llama3-8b (random bf16
 weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
@@ -21,7 +21,9 @@ clock around work that ends in a device synchronize), device busy time
 (the union of the kernels' intervals in the trace), the device's idle
 share, the attention kernels' share, and the kernels that took the most
 device time.  With --trace-dir it also writes each window's Chrome
-trace there.  Needs one NVIDIA card.
+trace there; --windows picks some of serve (prefill, decode),
+serve_int8 (their int8 twins) and train (default: all three).  Needs
+one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -140,7 +142,12 @@ def _train_window(window):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--trace-dir', default=None)
+    parser.add_argument('--windows', default='serve,serve_int8,train',
+                        help='comma-separated: serve, serve_int8, train')
     args = parser.parse_args()
+    picked = set(args.windows.split(','))
+    if not picked <= {'serve', 'serve_int8', 'train'}:
+        raise SystemExit(f'port_profile: unknown windows {args.windows}')
     if not torch.cuda.is_available():
         raise SystemExit('port_profile: needs an NVIDIA card')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -160,11 +167,13 @@ def main() -> int:
                 args.trace_dir, f'port_profile_{name}.json'))
         print(json.dumps(_summary(name, prof, wall, steps)), flush=True)
 
-    for kv_cache_dtype in ('auto', 'int8'):
-        _serve_windows(window, kv_cache_dtype)
-        gc.collect()
-        torch.cuda.empty_cache()
-    _train_window(window)
+    for name, kv_cache_dtype in (('serve', 'auto'), ('serve_int8', 'int8')):
+        if name in picked:
+            _serve_windows(window, kv_cache_dtype)
+            gc.collect()
+            torch.cuda.empty_cache()
+    if 'train' in picked:
+        _train_window(window)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -28,17 +28,33 @@
 //   dq:    one block per (64-row q tile, batch * head), looping over the
 //          kv tiles the causal/window predicate lets through (the Pallas
 //          `should_run` as loop bounds), as the forward does.
-//   dk/dv: one block per (64-row kv tile, batch * kv head), looping over
-//          the G query heads of the group and, for each, over the 32-row
-//          q tiles from the first one the predicate lets through.  The
-//          group sum happens in the block's registers: deterministic, no
+//   dk/dv: one block per (64-row kv tile, batch * kv head).  The group
+//          sum happens in the block's registers: deterministic, no
 //          atomics, as the TPU kernel's revisited output block was.  Each
 //          warp owns 16 kv rows and holds f32 dk and dv for them (two
-//          16 x d accumulators); the narrower 32-row q tile keeps the
-//          per-tile score fragments small enough to stay out of local
-//          memory.
-// Still to come for speed: wgmma, TMA and pipelined tile loads.
-#include "flash_common.cuh"
+//          16 x d accumulators, 128 registers a thread at d 128, which is
+//          why this pass stays on mma.sync for now).  The (group member,
+//          64-row q tile) pairs the causal/window predicate lets through
+//          form one stream, so the pipeline does not drain between the G
+//          heads.  Its Q and dO tiles move through a two-stage cp.async
+//          ring (the ring of ragged_prefill.cu): the next item's copies
+//          are issued right after the one barrier that opens an item and
+//          fly while its products run; its lse (times log2 e, for exp2f)
+//          and delta ride in registers and are stored to their stage
+//          after the products.  B fragments of Q and dO come by
+//          ldmatrix.x4 (two 8-column tiles a load), K's and V's A
+//          fragments by ldmatrix.x4.  The products take an item's 64
+//          q columns in two halves of 32, one after the other, so that
+//          one half's score fragments fit beside dk and dv.  Masking
+//          runs only for a warp whose 16 rows the item's tile crosses on
+//          the diagonal or the window's last row, and for the ragged
+//          last q tile.  d 128: 103 KB of shared memory, two blocks an
+//          SM.
+// ptxas (-Xptxas -v, CUDA 12.8, sm_90a), bf16 and f16 alike, no spills:
+// dk/dv 244 registers a thread at d 128 and 195 at d 64; dq 165 and 128.
+// Still to come for speed: wgmma for both passes, TMA, and for dq the
+// ring.
+#include "attn_fwd_mainloop.cuh"  // cp.async, ldmatrix.x4 B fragments
 
 namespace {
 
@@ -46,17 +62,20 @@ using namespace flash;
 
 constexpr int kBQ = 64;   // dq: query rows per block
 constexpr int kBK = 64;   // dq: kv columns per tile; dk/dv: kv rows per block
-constexpr int kBQ2 = 32;  // dk/dv: query rows per inner tile
+constexpr int kBQ2 = 64;  // dk/dv: query rows per tile of the stream
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
   return static_cast<size_t>(2 * kBQ + 2 * kBK) * (D + 8) * 2;
 }
 
+// K and V, then a two-stage ring of (Q, dO) tiles, then lse and delta
+// for each stage.
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return static_cast<size_t>(2 * kBK + 2 * kBQ2) * (D + 8) * 2 +
-         2 * kBQ2 * sizeof(float);
+  return static_cast<size_t>(2 * kBK + 4 * kBQ2) * (D + 8) * 2 +
+         4 * kBQ2 * sizeof(float);
 }
 
 template <typename T, int D>
@@ -190,8 +209,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// A fragment of the 16 x 16 block at (r0, c0) of a row-major shared
+// tile, by one ldmatrix.x4 (matrices: rows r0.. at c0, r0 + 8.. at c0,
+// r0.. at c0 + 8, r0 + 8.. at c0 + 8).
+template <typename T>
+__device__ __forceinline__ void load_a_x4(uint32_t (&a)[4], const T* tile,
+                                          int ld, int r0, int c0, int lane) {
+  const T* p = tile + (r0 + lane % 8 + ((lane / 8) % 2) * 8) * ld + c0 +
+               (lane / 16) * 8;
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
@@ -201,14 +235,15 @@ __global__ void __launch_bounds__(kThreads)
                          int window, int offset, float scale) {
   constexpr int LD = D + 8;
   constexpr int NT = D / 8;
-  constexpr int NQ = kBQ2 / 8;  // 8-column tiles of a q tile
+  constexpr int NQ = kBQ2 / 16;  // 8-column tiles of half a q tile
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
   T* Vs = Ks + kBK * LD;
-  T* Qs = Vs + kBK * LD;
-  T* dOs = Qs + kBQ2 * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + kBQ2 * LD);
-  float* delta_s = lse_s + kBQ2;
+  T* ring = Vs + kBK * LD;  // stage s: Q at ring + 2 s * tile, dO after it
+  constexpr int kTile = kBQ2 * LD;
+  float* lse_s = reinterpret_cast<float*>(ring + 4 * kTile);  // [2][kBQ2]
+  float* delta_s = lse_s + 2 * kBQ2;                          // [2][kBQ2]
 
   const int bk = blockIdx.x;  // batch * kvh + kv head
   const int kt = blockIdx.y;  // under a causal mask, most rows first
@@ -220,11 +255,7 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int t = lane % 4;
-
-  load_rows<T, D, kBK>(Ks, k + static_cast<size_t>(bk) * Skv * D, k0, Skv,
-                       tid);
-  load_rows<T, D, kBK>(Vs, v + static_cast<size_t>(bk) * Skv * D, k0, Skv,
-                       tid);
+  const float scale_log2 = scale * kLog2e;
 
   // The query rows that see any column of this kv tile.
   const int k_last = min(k0 + kBK, Skv) - 1;
@@ -235,10 +266,66 @@ __global__ void __launch_bounds__(kThreads)
     if (window > 0) q_hi = min(q_hi, k_last + window - 1 - offset);
   }
   const int i_lo = q_lo / kBQ2;
-  const int i_hi = q_hi < q_lo ? i_lo - 1 : q_hi / kBQ2;
+  const int nq = q_hi < q_lo ? 0 : q_hi / kBQ2 - i_lo + 1;
+  // One stream of (group member, q tile) items: item n is member n / nq,
+  // q tile i_lo + n % nq.
+  const int n_items = G * nq;
+
+  // Copy the stream's item n into stage st: Q and dO rows by cp.async
+  // (one commit group), lse (times log2 e) and delta into registers of
+  // threads tid < kBQ2 until `meta_store`.
+  float m_lse = 0.f, m_delta = 0.f;
+  auto issue = [&](int n, int st) {
+    const size_t row_base =
+        static_cast<size_t>(b * H + hk * G + n / nq) * Sq;
+    const int q0 = (i_lo + n % nq) * kBQ2;  // item n's q tile, copied
+    T* qd = ring + 2 * st * kTile;
+    T* od = qd + kTile;
+    for (int i = tid; i < kBQ2 * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c = (i % kChunks) * 8;
+      const bool ok = q0 + r < Sq;
+      const size_t off = (row_base + (ok ? q0 + r : 0)) * D + c;
+      attn::cp_async16(qd + r * LD + c, q + off, ok);
+      attn::cp_async16(od + r * LD + c, dout + off, ok);
+    }
+    attn::cp_async_commit();
+    if (tid < kBQ2) {
+      const bool ok = q0 + tid < Sq;
+      m_lse = ok ? lse[row_base + q0 + tid] * kLog2e : 0.f;
+      m_delta = ok ? delta[row_base + q0 + tid] : 0.f;
+    }
+  };
+  auto meta_store = [&](int st) {
+    if (tid < kBQ2) {
+      lse_s[st * kBQ2 + tid] = m_lse;
+      delta_s[st * kBQ2 + tid] = m_delta;
+    }
+  };
+
+  // K and V join the first item's commit group.
+  for (int i = tid; i < kBK * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const bool ok = k0 + r < Skv;
+    const size_t off =
+        (static_cast<size_t>(bk) * Skv + (ok ? k0 + r : 0)) * D + c;
+    attn::cp_async16(Ks + r * LD + c, k + off, ok);
+    attn::cp_async16(Vs + r * LD + c, v + off, ok);
+  }
+  if (n_items > 0) {
+    issue(0, 0);
+    meta_store(0);
+  } else {
+    attn::cp_async_commit();
+  }
 
   const int r_loc = warp * 16 + lane / 4;
   const int kpos[2] = {k0 + r_loc, k0 + r_loc + 8};
+  // This warp's kv rows, for the choice between the masked and the
+  // unmasked path.
+  const int kw_lo = k0 + warp * 16;
+  const int kw_hi = kw_lo + 15;
   float dka[NT][4], dva[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -248,78 +335,107 @@ __global__ void __launch_bounds__(kThreads)
       dva[n][e] = 0.f;
     }
 
-  for (int gi = 0; gi < G; ++gi) {
-    const size_t row_base = static_cast<size_t>(b * H + hk * G + gi) * Sq;
-    for (int i = i_lo; i <= i_hi; ++i) {
-      const int q0 = i * kBQ2;
-      __syncthreads();
-      load_rows<T, D, kBQ2>(Qs, q + row_base * D, q0, Sq, tid);
-      load_rows<T, D, kBQ2>(dOs, dout + row_base * D, q0, Sq, tid);
-      if (tid < kBQ2) {
-        const bool in = q0 + tid < Sq;
-        lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
-        delta_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
-      }
-      __syncthreads();
+  int st = 0;
+  for (int n = 0; n < n_items; ++n) {
+    attn::cp_async_wait<0>();  // item n (and K/V) landed ...
+    __syncthreads();           // ... for every thread, and stage st ^ 1
+                               // has been read
+    if (n + 1 < n_items) issue(n + 1, st ^ 1);
+    const T* Qs = ring + 2 * st * kTile;
+    const T* dOs = Qs + kTile;
+    const float* lse2 = lse_s + st * kBQ2;
+    const float* dlt = delta_s + st * kBQ2;
+    const int q0 = (i_lo + n % nq) * kBQ2;
 
+    const bool masked =
+        q0 + kBQ2 > Sq ||
+        (causal && (kw_hi > q0 + offset ||
+                    (window > 0 &&
+                     kw_lo < q0 + kBQ2 - 1 + offset - window + 1)));
+    // The tile's 64 q columns in two halves of 32, one after the other
+    // (not unrolled, so that the halves' products do not interleave), so
+    // that the score fragments of one half (32 registers) sit beside the
+    // 128 of dk and dv without spilling at d 128.
+#pragma unroll 1
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int c0 = h2 * (kBQ2 / 2);
       // S^T = K Q^T and dP^T = V dO^T, 16 kv rows x 32 q columns a warp.
-      float st[NQ][4], dpt[NQ][4];
+      float s_t[NQ][4], dp_t[NQ][4];
 #pragma unroll
-      for (int n = 0; n < NQ; ++n)
+      for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          st[n][e] = 0.f;
-          dpt[n][e] = 0.f;
+          s_t[j][e] = 0.f;
+          dp_t[j][e] = 0.f;
         }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t ak[4], av[4];
-        load_a(ak, Ks, LD, warp * 16, kk * 16, lane);
-        load_a(av, Vs, LD, warp * 16, kk * 16, lane);
+        load_a_x4(ak, Ks, LD, warp * 16, kk * 16, lane);
+        load_a_x4(av, Vs, LD, warp * 16, kk * 16, lane);
 #pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          uint32_t bq[2], bo[2];
-          load_b_nk(bq, Qs, LD, n * 8, kk * 16, lane);
-          load_b_nk(bo, dOs, LD, n * 8, kk * 16, lane);
-          Elem<T>::mma(st[n], ak, bq);
-          Elem<T>::mma(dpt[n], av, bo);
+        for (int j2 = 0; j2 < NQ / 2; ++j2) {
+          uint32_t b0[2], b1[2];
+          attn::load_b_nk_x2(b0, b1, Qs, LD, c0 + j2 * 16, kk * 16, lane);
+          Elem<T>::mma(s_t[2 * j2], ak, b0);
+          Elem<T>::mma(s_t[2 * j2 + 1], ak, b1);
+          attn::load_b_nk_x2(b0, b1, dOs, LD, c0 + j2 * 16, kk * 16, lane);
+          Elem<T>::mma(dp_t[2 * j2], av, b0);
+          Elem<T>::mma(dp_t[2 * j2 + 1], av, b1);
         }
       }
 
-      // P^T and dS^T in place of S^T and dP^T.
+      // P^T and dS^T in place of S^T and dP^T, in base 2 (lse staged
+      // times log2 e); masked only where the tile needs it.
+      if (masked) {
 #pragma unroll
-      for (int n = 0; n < NQ; ++n)
+        for (int j = 0; j < NQ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + 2 * t + (e & 1);
-          const int row = q0 + c;
-          const float x = visible(row + offset, kpos[e / 2], causal, window)
-                              ? st[n][e] * scale
-                              : kNegInf;
-          const float p = row < Sq ? expf(x - lse_s[c]) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - delta_s[c]) * scale;
-        }
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + j * 8 + 2 * t + (e & 1);
+            const int row = q0 + c;
+            const float x =
+                visible(row + offset, kpos[e / 2], causal, window)
+                    ? s_t[j][e] * scale_log2
+                    : kNegInf * kLog2e;
+            const float p = row < Sq ? exp2f(x - lse2[c]) : 0.f;
+            s_t[j][e] = p;
+            dp_t[j][e] = p * (dp_t[j][e] - dlt[c]) * scale;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + j * 8 + 2 * t + (e & 1);
+            const float p = exp2f(s_t[j][e] * scale_log2 - lse2[c]);
+            s_t[j][e] = p;
+            dp_t[j][e] = p * (dp_t[j][e] - dlt[c]) * scale;
+          }
+      }
 
       // dv += P^T dO and dk += dS^T Q.
 #pragma unroll
-      for (int kk = 0; kk < kBQ2 / 16; ++kk) {
+      for (int kk = 0; kk < NQ / 2; ++kk) {
         uint32_t ap[4], ad[4];
-        pack_a<T>(ap, st[2 * kk], st[2 * kk + 1]);
-        pack_a<T>(ad, dpt[2 * kk], dpt[2 * kk + 1]);
+        pack_a<T>(ap, s_t[2 * kk], s_t[2 * kk + 1]);
+        pack_a<T>(ad, dp_t[2 * kk], dp_t[2 * kk + 1]);
 #pragma unroll
         for (int n2 = 0; n2 < NT / 2; ++n2) {
           uint32_t b0[2], b1[2];
-          load_b_kn_x2(b0, b1, dOs, LD, kk * 16, n2 * 16, lane);
+          load_b_kn_x2(b0, b1, dOs, LD, c0 + kk * 16, n2 * 16, lane);
           Elem<T>::mma(dva[2 * n2], ap, b0);
           Elem<T>::mma(dva[2 * n2 + 1], ap, b1);
-          load_b_kn_x2(b0, b1, Qs, LD, kk * 16, n2 * 16, lane);
+          load_b_kn_x2(b0, b1, Qs, LD, c0 + kk * 16, n2 * 16, lane);
           Elem<T>::mma(dka[2 * n2], ad, b0);
           Elem<T>::mma(dka[2 * n2 + 1], ad, b1);
         }
       }
     }
+    if (n + 1 < n_items) meta_store(st ^ 1);
+    st ^= 1;
   }
+  attn::cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {

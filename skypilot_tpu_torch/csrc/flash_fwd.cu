@@ -13,185 +13,312 @@
 // What bounds it on the H100: operations.  At the training shape (B 2,
 // H 32, S 4096, d 128, causal) it does about 2.75e11 flops against about
 // 0.17 GB of q/k/v/out - some 1600 flops per byte, far above the card's
-// ~295 bf16 flops per byte.  So the design is about the tensor cores:
-// one block of 4 warps per (64-row q tile, batch * head); each warp owns
-// 16 query rows and multiplies with mma.sync m16n8k16 (bf16 in, f32
-// accumulate).  The scores, the online-softmax state (m, l per row) and
-// the output accumulator stay in registers for the whole kv loop: the C
-// fragments of S, rescaled and exponentiated in place, are the A
-// fragments of the P V product (rounded to the input type, as the
-// probabilities of a bf16 PV product are), so nothing but K and V tiles
-// passes through shared memory.  The Pallas `should_run` predicate
-// becomes the bounds of the kv-tile loop: tiles above the causal
-// diagonal, or wholly before the first row's window, are never visited.
-// q tiles run longest first (reversed tile order) to balance the causal
-// triangle over the SMs.  Still to come for speed: wgmma, TMA and a
-// pipelined K/V ring (the loads here are synchronous).
+// ~295 bf16 flops per byte.  Only wgmma reaches the tensor cores' full
+// rate on Hopper, and wgmma reads its B operand (and here A of Q K^T)
+// from swizzled shared memory, so the design is a warp-specialised
+// block fed by TMA (hopper.cuh has the pieces):
+//   - One block per (128-row q tile, batch * head), q tiles longest
+//     first (reversed order) to balance the causal triangle.  Three
+//     warpgroups: a producer, its registers lowered to 24 by setmaxnreg,
+//     whose one thread issues every TMA copy; two consumers (240
+//     registers each) that own 64 query rows apiece.
+//   - Copies.  Q is loaded once; K and V tiles of 128 columns go through
+//     a two-stage ring, each stage with a full barrier for K, one for V
+//     (S = Q K^T starts before V lands) and an empty barrier the 256
+//     consumer threads arrive on once their P V product has read the
+//     stage.  The copies are 3-d TMA boxes (64 columns x rows x one
+//     head) with the 128-byte swizzle that the wgmma descriptors read;
+//     TMA zero-fills rows past Sq and Skv.  d 128: 161 KB of shared
+//     memory (Q 32 KB, two stages of 64 KB, the barriers), one block an
+//     SM; d 64: 81 KB.  The producer stays until its last copies have
+//     landed, so none is in flight when the block exits.
+//   - Products.  S = Q K^T is wgmma m64n128k16 with both operands in
+//     shared memory.  P, rounded to the input type in registers (as the
+//     rounding bound's u A term assumes), is the register A operand of
+//     O += P V (m64n{d}k16), V read MN-major.  S, P and the f32 output
+//     accumulator stay in registers for the whole kv loop.
+//   - Softmax.  Online, on the wgmma accumulator layout, in base 2:
+//     scores are scaled by scale * log2(e) and exponentiated with
+//     exp2f; the row sum is kept per thread and reduced over the row's
+//     four lanes once, at the end; lse is written in natural-log units,
+//     (m + log2 l) ln 2.
+//   - Masking runs only on tiles that cross the causal diagonal, the
+//     window's first visible column or Skv, decided per consumer
+//     warpgroup; interior tiles take an unmasked path.  Tiles no row of
+//     the block sees are never visited: the Pallas `should_run`
+//     predicate as the loop's bounds.  Tiles run from the last (the
+//     diagonal) down.
+// ptxas (-Xptxas -v, CUDA 12.8, sm_90a): 168 registers a thread at
+// launch for every instantiation (setmaxnreg then moves the producer to
+// 24 and the consumers to 240), no spills.
+// Still to come for speed: a persistent grid, overlapping one tile's
+// softmax with the other consumer's products (ping-pong), FP8.
 //
 // Edge semantics follow the reference: masked scores are -1e30 (their
 // garbage is cancelled by the next correction), l == 0 guarded to a
 // zero output; columns past Skv (a ragged last tile) and rows past Sq
 // take no part.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // kv columns per tile
+constexpr int kBM = 128;      // query rows per block (two consumers of 64)
+constexpr int kBN = 128;      // kv columns per tile
+constexpr int kStages = 2;    // K/V ring depth
+constexpr int kBlockThreads = 384;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return static_cast<size_t>(kBQ + 2 * kBK) * (D + 8) * 2;
-}
+struct Smem {
+  static constexpr uint32_t kRegions = D / 64;         // 64-column regions
+  static constexpr uint32_t kQRegion = kBM * 128;      // bytes
+  static constexpr uint32_t kKVRegion = kBN * 128;
+  static constexpr uint32_t kQBytes = kRegions * kQRegion;
+  static constexpr uint32_t kTileBytes = kRegions * kKVRegion;  // K or V
+  static constexpr uint32_t kBars = kQBytes + kStages * 2 * kTileBytes;
+  // q_full, full_k[kStages], full_v[kStages], empty[kStages]; 1024 bytes
+  // of slack to align the base.
+  static constexpr size_t kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int H, int kvh, int Sq,
-                     int Skv, int causal, int window, int offset,
-                     float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = D / 8;  // 8-column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + kBQ * LD;
-  T* Vs = Ks + kBK * LD;
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     T* __restrict__ out, float* __restrict__ lse, int H,
+                     int kvh, int Sq, int Skv, int causal, int window,
+                     int offset, float scale_log2) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sKV = base + L::kQBytes;  // stage s: K, then V
+  const uint32_t q_full = base + L::kBars;
+  auto full_k = [&](int s) { return q_full + 8 * (1 + s); };
+  auto full_v = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest rows first
   const int b = bh / H;
   const int G = H / kvh;
   const int kv_row = b * kvh + (bh % H) / G;
-  const T* qb = q + static_cast<size_t>(bh) * Sq * D;
-  const T* kb = k + static_cast<size_t>(kv_row) * Skv * D;
-  const T* vb = v + static_cast<size_t>(kv_row) * Skv * D;
-  const int q0 = qt * kBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int t = lane % 4;
-
-  load_rows<T, D, kBQ>(Qs, qb, q0, Sq, tid);
+  const int q0 = qt * kBM;
 
   // The kv tiles any row of this block sees.
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int q_last = min(q0 + kBM, Sq) - 1;
   int k_lo = 0;
   int k_hi = Skv - 1;
   if (causal) {
     k_hi = min(k_hi, q_last + offset);
     if (window > 0) k_lo = max(0, q0 + offset - window + 1);
   }
-  const int j_lo = k_lo / kBK;
-  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBK;
+  const int j_lo = k_lo / kBN;
+  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBN;
+  const int n_tiles = j_hi - j_lo + 1;
 
-  // This lane's rows: r (c0, c1 of each C tile) and r + 8 (c2, c3).
-  const int r_loc = warp * 16 + lane / 4;
-  const int pos[2] = {q0 + r_loc + offset, q0 + r_loc + 8 + offset};
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full_k(s), 1);
+      hopper::mbar_init(full_v(s), 1);
+      hopper::mbar_init(empty(s), 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D, kBK>(Ks, kb, k0, Skv, tid);
-    load_rows<T, D, kBK>(Vs, vb, k0, Skv, tid);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 columns.
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, Qs, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t bf[2];
-        load_b_nk(bf, Ks, LD, n * 8, kk * 16, lane);
-        Elem<T>::mma(s[n], a, bf);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread issues every copy.
+    hopper::regs_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(q_full, L::kQBytes);
+      for (int r = 0; r < static_cast<int>(L::kRegions); ++r)
+        hopper::tma_load_3d(sQ + r * L::kQRegion, &tm_q, r * 64, q0, bh,
+                            q_full);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages;
+        hopper::mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);
+        const int k0 = (j_hi - n) * kBN;
+        const uint32_t sK = sKV + s * 2 * L::kTileBytes;
+        const uint32_t sV = sK + L::kTileBytes;
+        hopper::mbar_expect_tx(full_k(s), L::kTileBytes);
+        for (int r = 0; r < static_cast<int>(L::kRegions); ++r)
+          hopper::tma_load_3d(sK + r * L::kKVRegion, &tm_k, r * 64, k0,
+                              kv_row, full_k(s));
+        hopper::mbar_expect_tx(full_v(s), L::kTileBytes);
+        for (int r = 0; r < static_cast<int>(L::kRegions); ++r)
+          hopper::tma_load_3d(sV + r * L::kKVRegion, &tm_v, r * 64, k0,
+                              kv_row, full_v(s));
+      }
+      // Stay until the last copies have landed, so that none is in
+      // flight into shared memory when the block exits.
+      for (int n = max(0, n_tiles - kStages); n < n_tiles; ++n) {
+        hopper::mbar_wait(full_k(n % kStages), (n / kStages) & 1);
+        hopper::mbar_wait(full_v(n % kStages), (n / kStages) & 1);
       }
     }
+  } else {
+    hopper::regs_inc<240>();
+    const int c = wg - 1;  // this consumer's 64 rows: c * 64 ..
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int t = lane % 4;
+    // This lane's rows of the q tile: r_loc (i = 0) and r_loc + 8 (i = 1).
+    const int r_loc = c * 64 + warp * 16 + lane / 4;
+    const int pos0 = q0 + r_loc + offset;
+    // Positions of the warpgroup's first and last rows, for the choice
+    // between the masked and the unmasked path.
+    const int wpos_lo = q0 + c * 64 + offset;
+    const int wpos_hi = wpos_lo + 63;
+    const uint32_t sQc = sQ + c * 64 * 128;
 
-    // Masked online softmax, in registers.
-    float mx[2] = {m[0], m[1]};
+    float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+
+    hopper::mbar_wait(q_full, 0);
+    __syncwarp();
+    for (int n = 0; n < n_tiles; ++n) {
+      const int s = n % kStages;
+      const uint32_t ph = (n / kStages) & 1;
+      const int k0 = (j_hi - n) * kBN;
+      const uint32_t sK = sKV + s * 2 * L::kTileBytes;
+      const uint32_t sV = sK + L::kTileBytes;
+
+      // S = Q K^T, 64 rows x 128 columns.
+      float sc[64];
+      hopper::mbar_wait(full_k(s), ph);
+      __syncwarp();
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float x =
-            col < Skv && visible(pos[e / 2], col, causal, window)
-                ? s[n][e] * scale
-                : kNegInf;
-        s[n][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // bytes into the region
+        const uint64_t da = hopper::desc_sw128(
+            sQc + (kk / 4) * L::kQRegion + off, 16, 1024);
+        const uint64_t db = hopper::desc_sw128(
+            sK + (kk / 4) * L::kKVRegion + off, 16, 1024);
+        hopper::wgmma_ss_n128<T>(sc, da, db, kk > 0);
       }
-    float corr[2];
-    float psum[2] = {0.f, 0.f};
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::pin(sc);
+
+      // Online softmax in base 2, masked only where the tile needs it.
+      const bool masked =
+          k0 + kBN > Skv ||
+          (causal && (k0 + kBN - 1 > wpos_lo ||
+                      (window > 0 && k0 < wpos_hi - window + 1)));
+      float mx[2] = {m[0], m[1]};
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + j * 8 + 2 * t + (e & 1);
+            const float x =
+                col < Skv && visible(pos0 + 8 * (e / 2), col, causal, window)
+                    ? sc[4 * j + e] * scale_log2
+                    : kNegInf;
+            sc[4 * j + e] = x;
+            mx[e / 2] = fmaxf(mx[e / 2], x);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = sc[4 * j + e] * scale_log2;
+            sc[4 * j + e] = x;
+            mx[e / 2] = fmaxf(mx[e / 2], x);
+          }
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = row_max(mx[i]);
+        corr[i] = exp2f(m[i] - mx[i]);
+        m[i] = mx[i];
+        l[i] *= corr[i];
+      }
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + j * 8 + 2 * t + (e & 1);
+            const float p =
+                col < Skv ? exp2f(sc[4 * j + e] - m[e / 2]) : 0.f;
+            sc[4 * j + e] = p;
+            l[e / 2] += p;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2f(sc[4 * j + e] - m[e / 2]);
+            sc[4 * j + e] = p;
+            l[e / 2] += p;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+      // P as the A operand of P V: two 8-column C chunks a k step.
+      uint32_t pa[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        pa[kk][0] = Elem<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = Elem<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = Elem<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = Elem<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+
+      // O += P V.
+      hopper::mbar_wait(full_v(s), ph);
+      __syncwarp();
+      hopper::pin(o);
+      hopper::pin(pa);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        hopper::wgmma_rs<T>(
+            o, pa[kk], hopper::desc_sw128(sV + kk * 2048, L::kKVRegion, 1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::pin(o);
+      hopper::mbar_arrive(empty(s));
+    }
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = row_max(mx[i]);
-      corr[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
+      const float li = row_sum(l[i]);
+      const int row = q0 + r_loc + 8 * i;
+      if (row >= Sq) continue;
+      const float l_safe = li == 0.f ? 1.f : li;
+      T* orow = out + (static_cast<size_t>(bh) * Sq + row) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8) = Elem<T>::pack(
+            o[4 * j + 2 * i] / l_safe, o[4 * j + 2 * i + 1] / l_safe);
+      if (t == 0)
+        lse[static_cast<size_t>(bh) * Sq + row] =
+            m[i] == kNegInf ? kNegInf : (m[i] + log2f(l_safe)) * kLn2;
     }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float p = col < Skv ? expf(s[n][e] - m[e / 2]) : 0.f;
-        s[n][e] = p;
-        psum[e / 2] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = corr[i] * l[i] + row_sum(psum[i]);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // O += P V: P's C fragments are the A fragments of the product.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      pack_a<T>(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n2 = 0; n2 < NT / 2; ++n2) {
-        uint32_t b0[2], b1[2];
-        load_b_kn_x2(b0, b1, Vs, LD, kk * 16, n2 * 16, lane);
-        Elem<T>::mma(o[2 * n2], a, b0);
-        Elem<T>::mma(o[2 * n2 + 1], a, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r_loc + 8 * i;
-    if (row >= Sq) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = out + (static_cast<size_t>(bh) * Sq + row) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8) = Elem<T>::pack(
-          o[n][2 * i] / l_safe, o[n][2 * i + 1] / l_safe);
-    }
-    if (t == 0)
-      lse[static_cast<size_t>(bh) * Sq + row] = m[i] + logf(l_safe);
   }
 }
 
@@ -200,16 +327,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int H, int kvh, int Sq, int Skv,
                    int causal, int window, int offset, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<D>();
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::map_rows(&tq, q, kBf16, D, Sq, B * H, kBM) ||
+      !hopper::map_rows(&tk, k, kBf16, D, Skv, B * kvh, kBN) ||
+      !hopper::map_rows(&tv, v, kBf16, D, Skv, B * kvh, kBN))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = Smem<D>::kBytes;
   static bool configured = false;
   const cudaError_t err =
       allow_smem(flash_fwd_kernel<T, D>, smem, &configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, H, kvh, Sq, Skv,
-      causal, window, offset, scale);
+  const dim3 grid(B * H, (Sq + kBM - 1) / kBM);
+  flash_fwd_kernel<T, D><<<grid, kBlockThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), lse, H, kvh, Sq, Skv, causal,
+      window, offset, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -234,7 +366,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 1 bfloat16, 2 float16; window <= 0 means none.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
-// dtype, head dim or geometry).
+// dtype, head dim or geometry, or a tensor map cuTensorMapEncodeTiled
+// refuses).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int B, int H, int kvh,
                                 int Sq, int Skv, int d, int causal,

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
@@ -57,11 +58,14 @@ def _lib_path(name: str) -> Path:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
     """Compile every library of `names` that is not built yet, one
     nvcc per source, all started together.  Returns name -> (library
-    path, compiler log); the log holds ptxas's register and shared
-    memory report for a fresh build and is empty for a reused one."""
+    path, compiler log); for a fresh build the log opens with a line
+    `nvcc <name>.cu: <seconds> s` (that source's own compile time) and
+    holds ptxas's register and shared memory report; it is empty for a
+    reused one."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: Dict[str, Tuple[Path, str]] = {}
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         path = _lib_path(name)
         if path.exists():
@@ -73,9 +77,23 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, str]]:
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, path)
+    # One waiting thread a compiler, so that each finish time is its own.
+    logs: Dict[str, str] = {}
+
+    def wait(name: str, proc: subprocess.Popen) -> None:
+        log, _ = proc.communicate()
+        logs[name] = (f'nvcc {name}.cu: {time.perf_counter() - t0:.1f} s\n'
+                      + log)
+
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (proc, _, _) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = []
     for name, (proc, tmp, path) in procs.items():
-        log, _ = proc.communicate()
+        log = logs[name]
         if proc.returncode != 0:
             failed.append(f'{name}.cu (nvcc exit {proc.returncode}):\n{log}')
             continue

@@ -414,8 +414,20 @@ def _assert_within(name, got, want, tol):
     (1, 8, 2, 256, 128, True, 70, 0),
     (1, 4, 2, 128, 64, True, None, 40),
     (1, 32, 8, 1000, 128, True, None, 0),
+    # The forward's 128-row q tiles and 128-column kv ring, the dk/dv
+    # stream of (head, 64-row q tile) items: one row past a q tile; odd
+    # and even counts of kv tiles (each mbarrier phase flips both ways);
+    # a window below a tile; an offset past a tile; a GQA group of 8
+    # whose stream crosses heads mid-ring.
+    (1, 8, 2, 129, 128, True, None, 0),
+    (1, 4, 2, 640, 128, True, None, 0),
+    (1, 4, 2, 768, 128, True, None, 0),
+    (1, 8, 2, 300, 128, True, 17, 0),
+    (1, 4, 2, 256, 128, True, None, 130),
+    (1, 16, 2, 320, 128, True, None, 0),
 ], ids=['g1_d64', 'g4_b2', 'ragged', 'mqa_noncausal_ragged', 'window',
-        'offset', 'llama3_8b_heads'])
+        'offset', 'llama3_8b_heads', 's129', 's640_odd_tiles',
+        's768_even_tiles', 'window17', 'offset130', 'g8_s320'])
 def test_flash_kernels_match_plain(dev, dtype, b, h, kvh, s, d, causal,
                                    window, offset):
     q, k, v, do = _flash_case(dev, dtype, b, h, kvh, s, d)
