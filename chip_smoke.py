@@ -17,7 +17,14 @@ Phases, any failure exits non-zero:
                same function (SDPA on K/V gathered beforehand: a
                yardstick the port never calls).  Decode: batch 8,
                contexts 100-4000 over a shuffled page pool with a
-               poisoned null page.  Prefill: the 512-token chunks of a
+               poisoned null page, timed; then, checked only, the cases
+               the kernel's split page walk can get wrong (DECODE_EDGES):
+               a row shorter than one chunk, a 4000-position row beside
+               1-position rows, a row that sees nothing, S 4 masks, a
+               1024-position window (chunks that see nothing), pages of 8
+               and of 32, d 64, f16 and f32 q, each called twice in a row
+               on different inputs (a merge counter left non-zero would
+               show).  Prefill: the 512-token chunks of a
                3000-token prompt at cursor base 0, 1536 and 2560 (the
                last chunk, where kv_mask cuts into the chunk), timed;
                then, checked only, the cases the prefill kernel's tiling
@@ -25,8 +32,8 @@ Phases, any failure exits non-zero:
                multiple of the 64-row tile), a 1024-token window, a
                permuted block table, d 64, f16, pages of 8 and of 32
                tokens at a base that is not a multiple of the page.
-     The int8 branches of both at the same shapes (the prefill edge
-               cases too): the pools and caches
+     The int8 branches of both at the same shapes (the edge cases
+               too): the pools and caches
                are quantize_int8_rows of the same bf16 rows (the decode
                null page poisoned with int8 127 at a scale of 1e4), held
                against the plain int8 versions at f32 on the same int8
@@ -41,7 +48,9 @@ Phases, any failure exits non-zero:
                the plain versions (bf16 inputs) and SDPA (its forward,
                and its backward alone over one saved forward for dq and
                dk/dv; K/V repeated to H heads beforehand) at the training
-               shape.
+               shape; then, checked only, FLASH_EDGES: queries at an
+               offset past their keys (700; 200 under a 300-token window
+               at d 64).
   4. serve   - start the port's InferenceServer on llama3-8b at full width
                and depth (random bf16 weights from a seed; page 16,
                prefill chunk 512, 8 slots, max_seq_len 4096), reset every
@@ -91,9 +100,11 @@ Phases, any failure exits non-zero:
                The prefill entry's times and bound are the base-1536
                chunk's, its max_abs_err the worst over the three chunks
                and the edge cases, and `cases` holds each one's numbers
-               (the edge cases untimed); the flash entries
+               (the edge cases untimed); the decode entries' max_abs_err
+               is the worst over the timed case and DECODE_EDGES, whose
+               errors `cases` holds; the flash entries
                likewise hold the training shape's times and bound and the
-               worst error over their three cases.
+               worst error over their three cases and FLASH_EDGES.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -189,6 +200,14 @@ FLASH_CASES = (
     ('ragged_d64', 1, 32, 8, 1000, 64, None),
 )
 FLASH_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
+# Checked, not timed: a query block at an offset past its keys (ring
+# attention's chunks), where the diagonal crosses the dq pass's tiles at
+# another column than in FLASH_CASES, alone and under a window; (name,
+# B, H, kvh, S, d, window, offset).
+FLASH_EDGES = (
+    ('offset_700', 1, 32, 8, 1024, 128, None, 700),
+    ('window_300_offset_200', 1, 32, 8, 1000, 64, 300, 200),
+)
 
 
 def log(msg: str) -> None:
@@ -323,6 +342,19 @@ def _decode_inputs(dev, rng, quant=False):
             torch.as_tensor(mask, device=dev), ctxs, scales)
 
 
+def decode_work(ctxs, table, mask, quant: bool):
+    """(bytes, flops) of one serving-shape decode step (H 32, kvh 8,
+    d 128, S 1): q and out bf16 read and written once, the live K/V rows
+    once (int8 with an f32 scale each, or bf16), the table and the mask;
+    4 d flops per live position and query head."""
+    live = int(np.sum(ctxs))
+    b = table.shape[0]
+    kv_row = 2 * (D + 4) if quant else 2 * D * 2
+    nbytes = (2 * b * H * D * 2 + live * KVH * kv_row
+              + table.numel() * 4 + b * mask.shape[-1])
+    return nbytes, 4.0 * live * H * D
+
+
 def _dequantized(x, scale):
     """K/V in bf16 from an int8 cache (the library yardstick's input)."""
     return (x.float() * scale).to(DTYPE)
@@ -352,18 +384,97 @@ def _kernel_decode(dev, rng, quant):
         q, pk, pv, table, mask, **kw))
     lib_ms = time_ms(lambda: sdpa(q, kg, vg, attn_mask=mask,
                                   scale=D ** -0.5, enable_gqa=True))
-    live = int(ctxs.sum())
-    b = q.shape[0]
-    # q and out bf16; K/V bf16, or int8 with an f32 scale a row each.
-    kv_row = 2 * (D + 4) if quant else 2 * D * 2
-    nbytes = (2 * b * H * D * 2 + live * KVH * kv_row
-              + table.numel() * 4 + b * mask.shape[-1])
-    bms, by = bound(nbytes, 4.0 * live * H * D)
+    bms, by = bound(*decode_work(ctxs, table, mask, quant))
     lib = 'sdpa on K/V dequantized to bf16 beforehand' if quant else 'sdpa'
     log(f'{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
         f'{lib} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+    del q, pk, pv, table, mask, scales, kg, vg, got
+    cases = _decode_edges(dev, name, quant)
+    return dict(max_abs_err=max([err] + [c['max_abs_err'] for c in cases]),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, cases=cases)
+
+
+# Decode cases the kernel's split page walk can get wrong, checked but not
+# timed: (name, contexts, S, d, page size, q dtype, window), each with
+# H 32 and kvh 8 over a shuffled pool with a poisoned null page, in both
+# branches.  Query s of a row sees its first context + s positions (with
+# a window, only the last `window` of them); table entries past a row's
+# pages point at the null page.  A context of 0 is a row that sees
+# nothing (its table full of real pages): the reference gives it the mean
+# of V over its read window.  Every case runs twice in a row on different
+# inputs before either is checked, so that a merge counter left non-zero
+# by the first call shows in the second.
+DECODE_EDGES = (
+    ('row_shorter_than_a_chunk', (37, 3000), 1, D, PS, DTYPE, None),
+    ('long_row_beside_1_position_rows', (4000, 1, 1, 1), 1, D, PS, DTYPE,
+     None),
+    ('row_sees_nothing', (0, 2000, 5), 1, D, PS, DTYPE, None),
+    ('s4_masks', (700, 33, 1), 4, D, PS, DTYPE, None),
+    ('window_1024', (4000, 2500, 300), 1, D, PS, DTYPE, 1024),
+    ('ps8', (1000, 9), 1, D, 8, DTYPE, None),
+    ('ps32', (1000, 40), 1, D, 32, DTYPE, None),
+    ('d64', (1500, 17), 1, 64, PS, DTYPE, None),
+    ('f16_q', (1500, 17), 1, D, PS, torch.float16, None),
+    ('f32_q', (1500, 17), 1, D, PS, torch.float32, None),
+)
+
+
+def _decode_edge_inputs(dev, seed, ctxs, s, d, ps, dtype, window, quant):
+    from skypilot_tpu_torch.ops import grouped_attention as ga
+    g = torch.Generator().manual_seed(seed)
+    b = len(ctxs)
+    n_read = -(-(max(ctxs) + s - 1) // ps)
+    n_pages = 1 + b * n_read + 64
+    table = (torch.randperm(n_pages - 1, generator=g)[:b * n_read] + 1
+             ).reshape(b, n_read).to(torch.int32)
+    mask = torch.zeros(b, 1, s, n_read * ps, dtype=torch.bool)
+    for i, c in enumerate(ctxs):
+        if c == 0:
+            continue
+        for qi in range(s):
+            lo = 0 if window is None else max(0, c + qi - window)
+            mask[i, 0, qi, lo:c + qi] = True
+        table[i, -(-(c + s - 1) // ps):] = 0
+    pk, pv = (torch.randn(n_pages, KVH, ps, d, generator=g).to(dtype)
+              for _ in range(2))
+    q = torch.randn(b, H, s, d, generator=g).to(dtype)
+    scales = {}
+    if quant:
+        pk, ks = ga.quantize_int8_rows(pk)
+        pv, vs = ga.quantize_int8_rows(pv)
+        pk[0] = pv[0] = 127
+        ks[0] = vs[0] = 1e4
+        scales = dict(key_scale=ks.to(dev), value_scale=vs.to(dev))
+    else:
+        pk[0] = pv[0] = 1e4
+    return ([t.to(dev) for t in (q, pk, pv, table, mask)], scales)
+
+
+def _decode_edges(dev, name, quant):
+    """Check the decode kernel (float or int8 branch) on each DECODE_EDGES
+    case; returns one case dict each (max_abs_err, no times)."""
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    out = []
+    for ci, (case, ctxs, s, d, ps, dtype, window) in enumerate(
+            DECODE_EDGES):
+        runs = [_decode_edge_inputs(dev, 100 + 2 * ci + k, ctxs, s, d, ps,
+                                    dtype, window, quant) for k in range(2)]
+        gots = [pa.paged_decode_attention(*args, scale=d ** -0.5,
+                                          probs_dtype=dtype, **scales)
+                for args, scales in runs]
+        torch.cuda.synchronize()
+        u = {torch.float32: 2.0 ** -24, torch.float16: 2.0 ** -11}.get(
+            dtype, U_BF16)
+        err = max(check_kernel(
+            f'{name} {case} call {k + 1} (contexts {list(ctxs)}, S {s}, '
+            f'd {d}, page {ps}, {dtype}, window {window})', got,
+            pa.paged_decode_attention_plain, tuple(args),
+            dict(scale=d ** -0.5, **scales), probs_rounded=False, u=u)
+            for k, (got, (args, scales)) in enumerate(zip(gots, runs)))
+        out.append(dict(case=case, max_abs_err=err))
+        del runs, gots
+    return out
 
 
 # Prefill cases the kernel's tiling can get wrong, checked but not timed:
@@ -556,21 +667,23 @@ def _flash_work(b, h, kvh, s, d, window):
     }
 
 
-def _flash_case(dev, seed, case, b, h, kvh, s, d, window):
-    """Check one flash case; time it at the training shape.  Returns
-    (max_abs_err, (ms, plain_ms), library_ms) per kernel name."""
+def _flash_case(dev, seed, case, b, h, kvh, s, d, window, offset=0):
+    """Check one flash case; time it at the training shape (and only
+    the forward in the other FLASH_CASES, nothing at an offset).
+    Returns (max_abs_err, (ms, plain_ms), library_ms) per kernel name."""
     from skypilot_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(*shape, generator=g, device=dev, dtype=DTYPE)
                    for shape in ((b, h, s, d), (b, kvh, s, d),
                                  (b, kvh, s, d), (b, h, s, d)))
-    kw = dict(scale=d ** -0.5, causal=True, window=window)
+    kw = dict(scale=d ** -0.5, causal=True, window=window, offset=offset)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(-1)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    log(f'flash {case}: B {b} H {h} kvh {kvh} S {s} d {d} window {window}')
+    log(f'flash {case}: B {b} H {h} kvh {kvh} S {s} d {d} window {window} '
+        f'offset {offset}')
     tol = fa.rounding_bounds(q, k, v, do, lse, delta, **kw)
     f32 = [x.float() for x in (q, k, v, do)]
     out32, lse32 = fa.flash_fwd_plain(*f32[:3], **kw)
@@ -586,6 +699,8 @@ def _flash_case(dev, seed, case, b, h, kvh, s, d, window):
     del dq32, dk32, dv32, f32, tol
     errs = dict(zip(FLASH_KERNELS, (err_f, err_dq, err_dkv)))
     fwd = lambda: fa.flash_fwd(q, k, v, **kw)
+    if offset:
+        return errs, {}, {}
     if case != 'train':
         return errs, {'flash_fwd': (time_ms(fwd), None)}, {}
     plain_bwd = time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta,
@@ -641,6 +756,14 @@ def phase_flash_kernels(dev) -> dict:
             if name in libs:
                 entry['library_ms'] = libs[name]
             results[name]['cases'].append(entry)
+    for ci, (case, b, h, kvh, s, d, window, offset) in enumerate(
+            FLASH_EDGES):
+        errs = _flash_case(dev, 20 + ci, case, b, h, kvh, s, d, window,
+                           offset)[0]
+        torch.cuda.empty_cache()
+        for name in FLASH_KERNELS:
+            results[name]['cases'].append(dict(case=case,
+                                               max_abs_err=errs[name]))
     for res in results.values():
         main = next(c for c in res['cases'] if c['case'] == 'train')
         res.update(max_abs_err=max(c['max_abs_err'] for c in res['cases']),

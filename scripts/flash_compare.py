@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""Time the flash forward and the dk/dv pass against other versions of
-them, in turns, in one process on one card.
+"""Time the flash kernels against other versions of them, in turns, in
+one process on one card.
 
-    mkdir -p _trees
-    git show <commit>:skypilot_tpu_torch/csrc/flash_fwd.cu > _trees/flash_fwd_old.cu
-    git show <commit>:skypilot_tpu_torch/csrc/flash_bwd.cu > _trees/flash_bwd_old.cu
-    python3 scripts/flash_compare.py --old-fwd _trees/flash_fwd_old.cu \\
-        --old-bwd _trees/flash_bwd_old.cu
+    mkdir -p _trees/old
+    git archive <commit> skypilot_tpu_torch/csrc | tar -x -C _trees/old
+    python3 scripts/flash_compare.py \
+        --old-bwd _trees/old/skypilot_tpu_torch/csrc/flash_bwd.cu \
+        [--old-fwd _trees/old/skypilot_tpu_torch/csrc/flash_fwd.cu]
 
-Builds `--old-fwd` (a flash_fwd.cu with `flash_fwd_launch`) and
-`--old-bwd` (a flash_bwd.cu with `flash_bwd_dkv_launch`) with the
-package's nvcc flags (and csrc/ on the include path) into
+Builds `--old-bwd` (a flash_bwd.cu with `flash_bwd_dq_launch` and
+`flash_bwd_dkv_launch`) and, if given, `--old-fwd` (a flash_fwd.cu with
+`flash_fwd_launch`) with the package's nvcc flags into
 skypilot_tpu_torch/_build/ (git-ignored), in parallel with the current
-kernels, and prints every ptxas report.  At chip_smoke.py's FLASH_CASES
-(the training shape B 2, H 32, kvh 8, S 4096, d 128; a 1024-token
-window; a ragged S 1000 at d 64; causal, bf16, the same seeded inputs)
-it holds both versions' out, lse, dk and dv to the plain versions at f32
-within `flash_attention.rounding_bounds` (both backward versions on the
-current forward's lse and delta), then times each pair with CUDA events
+kernels, and prints every ptxas report; an old source's own directory
+comes first on the include path, so it takes the headers of its own
+commit.  At
+chip_smoke.py's FLASH_CASES (the training shape B 2, H 32, kvh 8, S
+4096, d 128; a 1024-token window; a ragged S 1000 at d 64; causal,
+bf16, the same seeded inputs) it holds both versions' dq, dk and dv
+(and out and lse with --old-fwd) to the plain versions at f32 within
+`flash_attention.rounding_bounds` (both backward versions on the current
+forward's lse and delta), then times each pair with CUDA events
 (chip_smoke.time_ms: device time, the launches queued behind a
 busy-wait kernel) in the order old, new, new, old.  Prints one line a
 case with each time and its bound, SDPA's forward and its backward alone
@@ -63,9 +66,12 @@ def _bind(lib, symbol, argtypes):
 
 
 def _old_kernels(fwd_lib, bwd_lib):
-    """Functions with flash_fwd's and flash_bwd_dkv's arguments that
-    launch the old libraries' kernels."""
-    fwd_fn = _bind(fwd_lib, 'flash_fwd_launch', fa._FWD_ARGTYPES)  # pylint: disable=protected-access
+    """Functions with flash_fwd's (None without `fwd_lib`), flash_bwd_dq's
+    and flash_bwd_dkv's arguments that launch the old libraries'
+    kernels."""
+    fwd_fn = fwd_lib and _bind(fwd_lib, 'flash_fwd_launch',
+                               fa._FWD_ARGTYPES)  # pylint: disable=protected-access
+    dq_fn = _bind(bwd_lib, 'flash_bwd_dq_launch', fa._DQ_ARGTYPES)  # pylint: disable=protected-access
     dkv_fn = _bind(bwd_lib, 'flash_bwd_dkv_launch', fa._DKV_ARGTYPES)  # pylint: disable=protected-access
 
     def fwd(q, k, v, *, scale, causal, window=None, offset=0):
@@ -79,6 +85,16 @@ def _old_kernels(fwd_lib, bwd_lib):
         _build.check(err, 'old flash_fwd_launch')
         return out, lse
 
+    def dq(q, k, v, do, lse, delta, *, scale, causal, window=None,
+           offset=0):
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        err = dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
+                    *fa._geometry(q, k, causal=causal, window=window,  # pylint: disable=protected-access
+                                  offset=offset, scale=scale))
+        _build.check(err, 'old flash_bwd_dq_launch')
+        return out
+
     def dkv(q, k, v, do, lse, delta, *, scale, causal, window=None,
             offset=0):
         dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
@@ -90,7 +106,7 @@ def _old_kernels(fwd_lib, bwd_lib):
                                    offset=offset, scale=scale))
         _build.check(err, 'old flash_bwd_dkv_launch')
         return dk, dv
-    return fwd, dkv
+    return (fwd if fwd_fn else None), dq, dkv
 
 
 def _ptxas(tag: str, log: str) -> None:
@@ -119,15 +135,16 @@ def _turns(fns: dict, iters: int) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument('--old-fwd', required=True,
-                        help='the other flash_fwd.cu')
+    parser.add_argument('--old-fwd', help='the other flash_fwd.cu')
     parser.add_argument('--old-bwd', required=True,
-                        help='the other flash_bwd.cu (its dk/dv entry)')
+                        help='the other flash_bwd.cu (its dq and dk/dv '
+                             'entries)')
     parser.add_argument('--iters', type=int, default=20)
     args = parser.parse_args()
     card = c.phase_device()
-    builds = {'old fwd': _start_build(args.old_fwd, 'flash_fwd_old'),
-              'old bwd': _start_build(args.old_bwd, 'flash_bwd_old')}
+    builds = {'old bwd': _start_build(args.old_bwd, 'flash_bwd_old')}
+    if args.old_fwd:
+        builds['old fwd'] = _start_build(args.old_fwd, 'flash_fwd_old')
     new = _build.build(['flash_fwd', 'flash_bwd'])
     for tag, (proc, _) in builds.items():
         log, _ = proc.communicate()
@@ -136,8 +153,17 @@ def main() -> int:
         _ptxas(tag, log)
     _ptxas('new fwd', new['flash_fwd'][1])
     _ptxas('new bwd', new['flash_bwd'][1])
-    old_fwd, old_dkv = _old_kernels(builds['old fwd'][1],
-                                    builds['old bwd'][1])
+    old_fwd, old_dq, old_dkv = _old_kernels(
+        builds['old fwd'][1] if args.old_fwd else None,
+        builds['old bwd'][1])
+    kernels = {'old': dict(dq=old_dq, dkv=old_dkv),
+               'new': dict(dq=fa.flash_bwd_dq, dkv=fa.flash_bwd_dkv)}
+    if old_fwd:
+        kernels['old']['fwd'] = old_fwd
+        kernels['new']['fwd'] = fa.flash_fwd
+    outputs = dict(fwd=('out', 'lse'), dq=('dq',), dkv=('dk', 'dv'))
+    work_name = dict(fwd='flash_fwd', dq='flash_bwd_dq',
+                     dkv='flash_bwd_dkv')
     dev = torch.device('cuda')
     results = []
     for ci, (case, b, h, kvh, s, d, window) in enumerate(c.FLASH_CASES):
@@ -152,47 +178,45 @@ def main() -> int:
         tol = fa.rounding_bounds(q, k, v, do, lse, delta, **kw)
         f32 = [x.float() for x in (q, k, v, do)]
         want = dict(zip(('out', 'lse'), fa.flash_fwd_plain(*f32[:3], **kw)))
-        want.update(zip(('dk', 'dv'), fa.flash_bwd_plain(
-            *f32, lse, delta, **kw)[1:]))
+        want.update(zip(('dq', 'dk', 'dv'), fa.flash_bwd_plain(
+            *f32, lse, delta, **kw)))
+        bwd_args = (q, k, v, do, lse, delta)
         worst = {}
-        for tag, fwd, dkv in (('old', old_fwd, old_dkv),
-                              ('new', fa.flash_fwd, fa.flash_bwd_dkv)):
-            got = dict(zip(('out', 'lse'), fwd(q, k, v, **kw)))
-            got.update(zip(('dk', 'dv'), dkv(q, k, v, do, lse, delta, **kw)))
+        for tag, fns in kernels.items():
+            got = {}
+            for name, fn in fns.items():
+                res = fn(*(bwd_args[:3] if name == 'fwd' else bwd_args),
+                         **kw)
+                got.update(zip(outputs[name],
+                               res if isinstance(res, tuple) else (res,)))
             torch.cuda.synchronize()
-            for name in ('out', 'lse', 'dk', 'dv'):
+            for name in got:
                 c.check_flash(f'{tag} {case} {name}', got[name], want[name],
                               tol[name])
-            worst[tag] = max(_worst(got[n], want[n], tol[n]) for n in got)
+            worst[tag] = {n: _worst(got[n], want[n], tol[n]) for n in got}
             del got
         del want, tol, f32
         torch.cuda.empty_cache()
-        fwd_t = _turns({'old': lambda: old_fwd(q, k, v, **kw),
-                        'new': lambda: fa.flash_fwd(q, k, v, **kw)},
-                       args.iters)
-        dkv_t = _turns({'old': lambda: old_dkv(q, k, v, do, lse, delta,
-                                               **kw),
-                        'new': lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
-                                                        delta, **kw)},
-                       args.iters)
         work = c._flash_work(b, h, kvh, s, d, window)  # pylint: disable=protected-access
-        fwd_b, fwd_by = c.bound(*work['flash_fwd'])
-        dkv_b, dkv_by = c.bound(*work['flash_bwd_dkv'])
         lib = (None, None) if window else c.sdpa_times(q, k, v, do,
                                                        kw['scale'])
-        c.log(f'{case}: flash_fwd old {fwd_t["old"]} ms, new '
-              f'{fwd_t["new"]} ms, bound {fwd_b:.4f} ms ({fwd_by}), sdpa '
-              f'forward {lib[0]} ms; flash_bwd_dkv old {dkv_t["old"]} ms, '
-              f'new {dkv_t["new"]} ms, bound {dkv_b:.4f} ms ({dkv_by}), '
-              f'sdpa backward alone {lib[1]} ms (in the order old, new, '
-              f'new, old); worst element over its bound old '
-              f'{worst["old"]:.3f}, new {worst["new"]:.3f}')
-        results.append(dict(
-            case=case, fwd_old_ms=fwd_t['old'], fwd_new_ms=fwd_t['new'],
-            fwd_bound_ms=fwd_b, fwd_bound_by=fwd_by, dkv_old_ms=dkv_t['old'],
-            dkv_new_ms=dkv_t['new'], dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by,
-            sdpa_fwd_ms=lib[0], sdpa_bwd_ms=lib[1], worst=worst))
-        del q, k, v, do, out, lse, delta
+        entry = dict(case=case, sdpa_fwd_ms=lib[0], sdpa_bwd_ms=lib[1],
+                     worst=worst)
+        for name in kernels['new']:
+            args_ = bwd_args[:3] if name == 'fwd' else bwd_args
+            t = _turns({tag: (lambda fn=kernels[tag][name]: fn(*args_, **kw))
+                        for tag in ('old', 'new')}, args.iters)
+            bms, by = c.bound(*work[work_name[name]])
+            c.log(f'{case}: {work_name[name]} old {t["old"]} ms, new '
+                  f'{t["new"]} ms (in the order old, new, new, old), bound '
+                  f'{bms:.4f} ms ({by})')
+            entry.update({f'{name}_old_ms': t['old'], f'{name}_new_ms':
+                          t['new'], f'{name}_bound_ms': bms,
+                          f'{name}_bound_by': by})
+        c.log(f'{case}: sdpa forward {lib[0]} ms, backward alone {lib[1]} '
+              f'ms; worst element over its bound {worst}')
+        results.append(entry)
+        del q, k, v, do, out, lse, delta, bwd_args
         torch.cuda.empty_cache()
     c.log(json.dumps({'card': card, 'cases': results}))
     return 0

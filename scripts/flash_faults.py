@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Planted faults in the flash-attention kernels must fail chip_smoke.py.
 
-    python3 scripts/flash_faults.py
+    python3 scripts/flash_faults.py [fault name ...]
 
-For each fault below, copies the port (skypilot_tpu_torch/ and
-chip_smoke.py) into skypilot_tpu_torch/_build/faults/<name>/ (git-ignored),
-changes one line of a kernel source there, and runs in that copy, in a
-fresh process, chip_smoke.py's device, build and flash-kernel phases,
+For each fault below (or each one named), copies the port
+(skypilot_tpu_torch/ and chip_smoke.py) into
+skypilot_tpu_torch/_build/faults/<name>/ (git-ignored), changes one
+line of a kernel source there, and runs in that copy, in a fresh
+process, chip_smoke.py's device, build and flash-kernel phases,
 then its train phase's kernels-vs-plain step (`train_gaps`: one step's
 loss and grad norm with the kernels and with the plain versions, on two
 batches).  The unchanged copy runs first as the control and must pass
@@ -43,8 +44,8 @@ FAULTS = (
      'const int n_items = G * nq;',
      'const int n_items = (G - 1) * nq;'),
     ('dq_without_delta', 'flash_bwd.cu',
-     's[n][e] = p * (dp[n][e] - row_delta[e / 2]) * scale;',
-     's[n][e] = p * dp[n][e] * scale;'),
+     'dlt[i] = row < Sq ? delta[at] : 0.f;',
+     'dlt[i] = 0.f;'),
     ('fwd_scale_1pct_high', 'flash_fwd.cu',
      'window, offset, scale * kLog2e);',
      'window, offset, scale * kLog2e * 1.01f);'),
@@ -67,6 +68,18 @@ FAULTS = (
     ('dkv_ring_refills_the_stage_in_use', 'flash_bwd.cu',
      'if (n + 1 < n_items) issue(n + 1, st ^ 1);',
      'if (n + 1 < n_items) issue(n + 1, st);'),
+    # What the dq pass's redesign added: its TMA ring (the producer no
+    # longer waits for the consumers to free a stage), the consumers'
+    # mbarrier phases, the tiles it runs unmasked.
+    ('dq_ring_refills_the_stage_in_use', 'flash_bwd.cu',
+     'hopper::mbar_wait(empty(s), ((n / kDqStages) & 1) ^ 1);',
+     ';'),
+    ('dq_phase_bit_not_flipped', 'flash_bwd.cu',
+     'const uint32_t ph = (n / kDqStages) & 1;',
+     'const uint32_t ph = 0;'),
+    ('dq_boundary_tile_unmasked', 'flash_bwd.cu',
+     '(causal && (k0 + kDqBN - 1 > wpos_lo ||',
+     '(causal && (k0 > wpos_hi ||'),
 )
 
 _RUN = ('import json, gc, torch, chip_smoke as c\n'
@@ -147,8 +160,11 @@ def _check(name: str, tree: str) -> bool:
 
 
 def main() -> int:
+    only = sys.argv[1:]  # fault names to run (default: all)
     ok = not _check('control', _copy('control'))
     for name, src, old, new in FAULTS:
+        if only and name not in only:
+            continue
         tree = _copy(name)
         _plant(tree, src, old, new)
         ok &= _check(name, tree)

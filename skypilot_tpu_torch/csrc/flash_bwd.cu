@@ -19,30 +19,50 @@
 // H 32, S 4096, d 128, causal) the dq pass does about 4.1e11 flops (three
 // products per visible pair) and the dk/dv pass about 5.5e11 (four), each
 // against well under a gigabyte of operands.  So both keep every product
-// on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) with
-// the accumulators in registers, and both feed P and dS, rounded to the
-// input type, from the C fragments of one product straight into the A
-// fragments of the next.  Blocks on Hopper run in no order, so neither
+// on the tensor cores (bf16/f16 in, f32 accumulate) with the
+// accumulators in registers, and both feed dS (and P), rounded to the
+// input type, from the accumulators of one product straight into the A
+// operand of the next.  Blocks on Hopper run in no order, so neither
 // pass carries a sum across blocks as the TPU grid did: each owns its
-// output tile and loops inside.
-//   dq:    one block per (64-row q tile, batch * head), looping over the
-//          kv tiles the causal/window predicate lets through (the Pallas
-//          `should_run` as loop bounds), as the forward does.
+// output tile, loops inside and writes it once (no atomics).
+//   dq:    warp-specialised on wgmma fed by TMA, like flash_fwd.cu (the
+//          pieces are hopper.cuh's).  One block per (128-row q tile,
+//          batch * head), q tiles longest first.  A producer warpgroup
+//          (24 registers by setmaxnreg) has one thread issue every copy:
+//          Q and dO once, as 3-d TMA boxes with the 128-byte swizzle,
+//          then 64-column K and V tiles through a two-stage mbarrier ring
+//          (a full barrier for K and one for V a stage, an empty barrier
+//          the 256 consumer threads arrive on).  Two consumer warpgroups
+//          (240 registers) own 64 query rows each, with lse (times
+//          log2 e) and delta in registers.  A tile: S = Q K^T and
+//          dP = dO V^T by wgmma m64n64k16 with both operands in shared
+//          memory (K-major); P = exp2(S scale log2 e - lse log2 e) and
+//          dS = P (dP - delta) scale in registers; dq += dS K by wgmma
+//          with dS, rounded to the input type, as the register A operand
+//          and K read MN-major (the transpose bit) from the same tile.
+//          The f32 dq accumulator (64 registers a thread at d 128) stays
+//          in registers for the whole kv loop.  Tiles are those the
+//          causal/window predicate lets through (the Pallas `should_run`
+//          as loop bounds); a consumer skips the products of a tile none
+//          of its 64 rows sees and masks only tiles that cross the
+//          diagonal, the window's first column or Skv.  The producer
+//          waits for its last copies before it exits.  d 128: 129 KB of
+//          shared memory, one block an SM.
 //   dk/dv: one block per (64-row kv tile, batch * kv head).  The group
 //          sum happens in the block's registers: deterministic, no
 //          atomics, as the TPU kernel's revisited output block was.  Each
 //          warp owns 16 kv rows and holds f32 dk and dv for them (two
 //          16 x d accumulators, 128 registers a thread at d 128, which is
-//          why this pass stays on mma.sync for now).  The (group member,
-//          64-row q tile) pairs the causal/window predicate lets through
-//          form one stream, so the pipeline does not drain between the G
-//          heads.  Its Q and dO tiles move through a two-stage cp.async
-//          ring (the ring of ragged_prefill.cu): the next item's copies
-//          are issued right after the one barrier that opens an item and
-//          fly while its products run; its lse (times log2 e, for exp2f)
-//          and delta ride in registers and are stored to their stage
-//          after the products.  B fragments of Q and dO come by
-//          ldmatrix.x4 (two 8-column tiles a load), K's and V's A
+//          why this pass stays on mma.sync m16n8k16 for now).  The (group
+//          member, 64-row q tile) pairs the causal/window predicate lets
+//          through form one stream, so the pipeline does not drain
+//          between the G heads.  Its Q and dO tiles move through a
+//          two-stage cp.async ring (the ring of ragged_prefill.cu): the
+//          next item's copies are issued right after the one barrier that
+//          opens an item and fly while its products run; its lse (times
+//          log2 e, for exp2f) and delta ride in registers and are stored
+//          to their stage after the products.  B fragments of Q and dO
+//          come by ldmatrix.x4 (two 8-column tiles a load), K's and V's A
 //          fragments by ldmatrix.x4.  The products take an item's 64
 //          q columns in two halves of 32, one after the other, so that
 //          one half's score fragments fit beside dk and dv.  Masking
@@ -51,24 +71,24 @@
 //          last q tile.  d 128: 103 KB of shared memory, two blocks an
 //          SM.
 // ptxas (-Xptxas -v, CUDA 12.8, sm_90a), bf16 and f16 alike, no spills:
-// dk/dv 244 registers a thread at d 128 and 195 at d 64; dq 165 and 128.
-// Still to come for speed: wgmma for both passes, TMA, and for dq the
-// ring.
+// dk/dv 244 registers a thread at d 128 and 195 at d 64; dq 168 at
+// launch (setmaxnreg: the producer 24, the consumers 240).
+// Still to come for speed: wgmma for the dk/dv pass; for dq, the next
+// tile's S and dP products issued before this tile's dq product ends.
 #include "attn_fwd_mainloop.cuh"  // cp.async, ldmatrix.x4 B fragments
+#include "hopper.cuh"             // the dq pass: TMA, mbarriers, wgmma
 
 namespace {
 
 using namespace flash;
 
-constexpr int kBQ = 64;   // dq: query rows per block
-constexpr int kBK = 64;   // dq: kv columns per tile; dk/dv: kv rows per block
+constexpr int kDqBM = 128;      // dq: query rows per block (two consumers)
+constexpr int kDqBN = 64;       // dq: kv columns per tile
+constexpr int kDqStages = 2;    // dq: K/V ring depth
+constexpr int kDqThreads = 384;  // dq: a producer and two consumer warpgroups
+constexpr int kBK = 64;   // dk/dv: kv rows per block
 constexpr int kBQ2 = 64;  // dk/dv: query rows per tile of the stream
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return static_cast<size_t>(2 * kBQ + 2 * kBK) * (D + 8) * 2;
-}
 
 // K and V, then a two-stage ring of (Q, dO) tiles, then lse and delta
 // for each stage.
@@ -78,134 +98,244 @@ constexpr size_t dkv_smem_bytes() {
          4 * kBQ2 * sizeof(float);
 }
 
+// The dq pass: grid (B * H, query tiles of kDqBM rows), longest rows
+// first.  Warpgroup 0 produces (one thread issues every TMA copy: Q and
+// dO once, K and V tiles through the ring); warpgroups 1 and 2 each own
+// 64 query rows.  Shared-memory tiles are 128-byte swizzled in 64-column
+// regions, as hopper.cuh describes.
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t kRegions = D / 64;          // 64-column regions
+  static constexpr uint32_t kQRegion = kDqBM * 128;     // bytes, Q or dO
+  static constexpr uint32_t kKVRegion = kDqBN * 128;    // K or V
+  static constexpr uint32_t kQBytes = kRegions * kQRegion;
+  static constexpr uint32_t kTileBytes = kRegions * kKVRegion;
+  static constexpr uint32_t kBars = 2 * kQBytes + kDqStages * 2 * kTileBytes;
+  // q_full, full_k[kDqStages], full_v[kDqStages], empty[kDqStages]; 1024
+  // bytes of slack to align the base.
+  static constexpr size_t kBytes = kBars + 8 * (1 + 3 * kDqStages) + 1024;
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int H, int kvh, int Sq,
                         int Skv, int causal, int window, int offset,
                         float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + kBQ * LD;
-  T* Ks = dOs + kBQ * LD;
-  T* Vs = Ks + kBK * LD;
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sdO = base + L::kQBytes;
+  const uint32_t sKV = base + 2 * L::kQBytes;  // stage s: K, then V
+  const uint32_t q_full = base + L::kBars;
+  auto full_k = [&](int s) { return q_full + 8 * (1 + s); };
+  auto full_v = [&](int s) { return q_full + 8 * (1 + kDqStages + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kDqStages + s); };
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest rows first
   const int b = bh / H;
   const int G = H / kvh;
   const int kv_row = b * kvh + (bh % H) / G;
-  const size_t row_base = static_cast<size_t>(bh) * Sq;
-  const T* kb = k + static_cast<size_t>(kv_row) * Skv * D;
-  const T* vb = v + static_cast<size_t>(kv_row) * Skv * D;
-  const int q0 = qt * kBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int t = lane % 4;
+  const int q0 = qt * kDqBM;
 
-  load_rows<T, D, kBQ>(Qs, q + row_base * D, q0, Sq, tid);
-  load_rows<T, D, kBQ>(dOs, dout + row_base * D, q0, Sq, tid);
-
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  // The kv tiles any row of this block sees (the Pallas `should_run`).
+  const int q_last = min(q0 + kDqBM, Sq) - 1;
   int k_lo = 0;
   int k_hi = Skv - 1;
   if (causal) {
     k_hi = min(k_hi, q_last + offset);
     if (window > 0) k_lo = max(0, q0 + offset - window + 1);
   }
-  const int j_lo = k_lo / kBK;
-  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBK;
+  const int j_lo = k_lo / kDqBN;
+  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kDqBN;
+  const int n_tiles = j_hi - j_lo + 1;
 
-  const int r_loc = warp * 16 + lane / 4;
-  int pos[2];
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r_loc + 8 * i;
-    pos[i] = row + offset;
-    row_lse[i] = row < Sq ? lse[row_base + row] : 0.f;
-    row_delta[i] = row < Sq ? delta[row_base + row] : 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hopper::mbar_init(full_k(s), 1);
+      hopper::mbar_init(full_v(s), 1);
+      hopper::mbar_init(empty(s), 2 * 128);
+    }
+    hopper::mbar_fence_init();
   }
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  __syncthreads();
 
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();
-    load_rows<T, D, kBK>(Ks, kb, k0, Skv, tid);
-    load_rows<T, D, kBK>(Vs, vb, k0, Skv, tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T, 16 rows x 64 columns per warp.
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = 0.f;
-        dp[n][e] = 0.f;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread issues every copy.
+    hopper::regs_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(q_full, 2 * L::kQBytes);
+      for (int r = 0; r < static_cast<int>(L::kRegions); ++r) {
+        hopper::tma_load_3d(sQ + r * L::kQRegion, &tm_q, r * 64, q0, bh,
+                            q_full);
+        hopper::tma_load_3d(sdO + r * L::kQRegion, &tm_do, r * 64, q0, bh,
+                            q_full);
       }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, Qs, LD, warp * 16, kk * 16, lane);
-      load_a(ao, dOs, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t bk[2], bv[2];
-        load_b_nk(bk, Ks, LD, n * 8, kk * 16, lane);
-        load_b_nk(bv, Vs, LD, n * 8, kk * 16, lane);
-        Elem<T>::mma(s[n], aq, bk);
-        Elem<T>::mma(dp[n], ao, bv);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kDqStages;
+        hopper::mbar_wait(empty(s), ((n / kDqStages) & 1) ^ 1);
+        const int k0 = (j_hi - n) * kDqBN;
+        const uint32_t sK = sKV + s * 2 * L::kTileBytes;
+        const uint32_t sV = sK + L::kTileBytes;
+        hopper::mbar_expect_tx(full_k(s), L::kTileBytes);
+        for (int r = 0; r < static_cast<int>(L::kRegions); ++r)
+          hopper::tma_load_3d(sK + r * L::kKVRegion, &tm_k, r * 64, k0,
+                              kv_row, full_k(s));
+        hopper::mbar_expect_tx(full_v(s), L::kTileBytes);
+        for (int r = 0; r < static_cast<int>(L::kRegions); ++r)
+          hopper::tma_load_3d(sV + r * L::kKVRegion, &tm_v, r * 64, k0,
+                              kv_row, full_v(s));
+      }
+      // Stay until the last copies have landed, so that none is in
+      // flight into shared memory when the block exits.
+      for (int n = max(0, n_tiles - kDqStages); n < n_tiles; ++n) {
+        hopper::mbar_wait(full_k(n % kDqStages), (n / kDqStages) & 1);
+        hopper::mbar_wait(full_v(n % kDqStages), (n / kDqStages) & 1);
       }
     }
-
-    // dS = P (dP - delta) * scale, P = exp(S - lse); kept in s.
+  } else {
+    hopper::regs_inc<240>();
+    const int c = wg - 1;  // this consumer's 64 rows: c * 64 ..
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int t = lane % 4;
+    // This lane's rows of the q tile: r_loc (i = 0) and r_loc + 8 (i = 1).
+    const int r_loc = c * 64 + warp * 16 + lane / 4;
+    // Positions of the warpgroup's first and last rows, for the choice
+    // between the masked and the unmasked path and for skipping tiles
+    // none of its rows sees.
+    const int wpos_lo = q0 + c * 64 + offset;
+    const int wpos_hi = wpos_lo + 63;
+    const uint32_t sQc = sQ + c * 64 * 128;
+    const uint32_t sdOc = sdO + c * 64 * 128;
+    const float scale_log2 = scale * kLog2e;
+    int pos[2];
+    float lse2[2], dlt[2];  // lse times log2(e), and delta, of the 2 rows
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float x = visible(pos[e / 2], col, causal, window)
-                            ? s[n][e] * scale
-                            : kNegInf;
-        const float p = col < Skv ? expf(x - row_lse[e / 2]) : 0.f;
-        s[n][e] = p * (dp[n][e] - row_delta[e / 2]) * scale;
-      }
-
-    // dq += dS K.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      pack_a<T>(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n2 = 0; n2 < NT / 2; ++n2) {
-        uint32_t b0[2], b1[2];
-        load_b_kn_x2(b0, b1, Ks, LD, kk * 16, n2 * 16, lane);
-        Elem<T>::mma(acc[2 * n2], a, b0);
-        Elem<T>::mma(acc[2 * n2 + 1], a, b1);
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r_loc + 8 * i;
+      pos[i] = row + offset;
+      const size_t at = static_cast<size_t>(bh) * Sq + row;
+      lse2[i] = row < Sq ? lse[at] * kLog2e : 0.f;
+      dlt[i] = row < Sq ? delta[at] : 0.f;
     }
-  }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    hopper::mbar_wait(q_full, 0);
+    __syncwarp();
+    for (int n = 0; n < n_tiles; ++n) {
+      const int s = n % kDqStages;
+      const uint32_t ph = (n / kDqStages) & 1;
+      const int k0 = (j_hi - n) * kDqBN;
+      const uint32_t sK = sKV + s * 2 * L::kTileBytes;
+      const uint32_t sV = sK + L::kTileBytes;
+      const bool skip =
+          causal && (k0 > wpos_hi ||
+                     (window > 0 && k0 + kDqBN - 1 < wpos_lo - window + 1));
+      hopper::mbar_wait(full_k(s), ph);
+      hopper::mbar_wait(full_v(s), ph);
+      __syncwarp();
+      if (!skip) {
+        // S = Q K^T and dP = dO V^T, 64 rows x 64 columns each.
+        float sc[32], dp[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * L::kQRegion + (kk % 4) * 32;
+          const uint32_t koff = (kk / 4) * L::kKVRegion + (kk % 4) * 32;
+          hopper::wgmma_ss_n64<T>(sc, hopper::desc_sw128(sQc + off, 16, 1024),
+                                  hopper::desc_sw128(sK + koff, 16, 1024),
+                                  kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * L::kQRegion + (kk % 4) * 32;
+          const uint32_t koff = (kk / 4) * L::kKVRegion + (kk % 4) * 32;
+          hopper::wgmma_ss_n64<T>(dp, hopper::desc_sw128(sdOc + off, 16, 1024),
+                                  hopper::desc_sw128(sV + koff, 16, 1024),
+                                  kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::pin(sc);
+        hopper::pin(dp);
+
+        // dS = P (dP - delta) * scale, P = exp2(S scale log2 e - lse log2
+        // e), in place of S; masked only where the tile needs it.
+        const bool masked =
+            k0 + kDqBN > Skv ||
+            (causal && (k0 + kDqBN - 1 > wpos_lo ||
+                        (window > 0 && k0 < wpos_hi - window + 1)));
+        if (masked) {
+#pragma unroll
+          for (int j = 0; j < kDqBN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = k0 + j * 8 + 2 * t + (e & 1);
+              const int i = e / 2;
+              const float x = visible(pos[i], col, causal, window)
+                                  ? sc[4 * j + e] * scale_log2
+                                  : kNegInf * kLog2e;
+              const float p = col < Skv ? exp2f(x - lse2[i]) : 0.f;
+              sc[4 * j + e] = p * (dp[4 * j + e] - dlt[i]) * scale;
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kDqBN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e / 2;
+              const float p = exp2f(sc[4 * j + e] * scale_log2 - lse2[i]);
+              sc[4 * j + e] = p * (dp[4 * j + e] - dlt[i]) * scale;
+            }
+        }
+        // dS, rounded to T, as the A operand of dq += dS K: two 8-column
+        // C chunks a k step; K read MN-major from the same tile.
+        uint32_t da[kDqBN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kDqBN / 16; ++kk) {
+          da[kk][0] = Elem<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
+          da[kk][1] = Elem<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+          da[kk][2] = Elem<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+          da[kk][3] = Elem<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        hopper::pin(acc);
+        hopper::pin(da);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDqBN / 16; ++kk)
+          hopper::wgmma_rs<T>(
+              acc, da[kk],
+              hopper::desc_sw128(sK + kk * 2048, L::kKVRegion, 1024));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::pin(acc);
+      }
+      hopper::mbar_arrive(empty(s));
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r_loc + 8 * i;
-    if (row >= Sq) continue;
-    float* drow = dq + (row_base + row) * D + 2 * t;
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r_loc + 8 * i;
+      if (row >= Sq) continue;
+      float* drow = dq + (static_cast<size_t>(bh) * Sq + row) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<float2*>(drow + n * 8) =
-          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(drow + j * 8) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
   }
 }
 
@@ -461,17 +591,22 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, float* dq) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!hopper::map_rows(&tq, a.q, kBf16, D, a.Sq, a.B * a.H, kDqBM) ||
+      !hopper::map_rows(&tdo, a.dout, kBf16, D, a.Sq, a.B * a.H, kDqBM) ||
+      !hopper::map_rows(&tk, a.k, kBf16, D, a.Skv, a.B * a.kvh, kDqBN) ||
+      !hopper::map_rows(&tv, a.v, kBf16, D, a.Skv, a.B * a.kvh, kDqBN))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = DqSmem<D>::kBytes;
   static bool configured = false;
   const cudaError_t err =
       allow_smem(flash_bwd_dq_kernel<T, D>, smem, &configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.Sq + kBQ - 1) / kBQ);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, dq, a.H, a.kvh, a.Sq, a.Skv, a.causal, a.window, a.offset,
-      a.scale);
+  const dim3 grid(a.B * a.H, (a.Sq + kDqBM - 1) / kDqBM);
+  flash_bwd_dq_kernel<T, D><<<grid, kDqThreads, smem, a.stream>>>(
+      tq, tdo, tk, tv, a.lse, a.delta, dq, a.H, a.kvh, a.Sq, a.Skv,
+      a.causal, a.window, a.offset, a.scale);
   return cudaGetLastError();
 }
 

@@ -78,16 +78,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* tile,
   a[3] = ld32(p + 8 * ld + 8);
 }
 
-// B fragment (16 x 8) with B[k][n] = tile[n0 + n][k0 + k]: the operand
-// is stored one row per n (K for Q K^T), so each pair is contiguous.
-template <typename T>
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[2], const T* tile,
-                                          int ld, int n0, int k0, int lane) {
-  const T* p = tile + (n0 + lane / 4) * ld + k0 + 2 * (lane % 4);
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
 // B fragments of two adjacent 8-column tiles (n0 and n0 + 8) with
 // B[k][n] = tile[k0 + k][n0 + n]: the operand is stored one row per k
 // (V for P V), so ldmatrix.trans transposes 8 x 8 blocks on the way in.
@@ -116,25 +106,6 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
   a[1] = Elem<T>::pack(lo[2], lo[3]);
   a[2] = Elem<T>::pack(hi[0], hi[1]);
   a[3] = Elem<T>::pack(hi[2], hi[3]);
-}
-
-// Copy rows [row0, row0 + ROWS) of a row-major [nrows, D] matrix into a
-// shared tile of row stride D + 8, 16 bytes a thread-step; rows past
-// nrows are zero.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
-                                          int nrows, int tid) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = D / kVec;
-  for (int i = tid; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(
-          src + (static_cast<size_t>(row0) + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-  }
 }
 
 // Max and sum over the 4 lanes that share a fragment row.

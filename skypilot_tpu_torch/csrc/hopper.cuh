@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tensor
 // copies, wgmma descriptors and products, and register reallocation
-// between warpgroups.  Used by flash_fwd.cu.
+// between warpgroups.  Used by flash_fwd.cu and flash_bwd.cu's dq pass.
 //
 // Shared-memory tiles that wgmma reads are written by TMA with the
 // 128-byte swizzle: a box of 64 16-bit columns by R rows lands as R rows
@@ -175,6 +175,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
     HOPPER_SS_N128("bf16");
   else
     HOPPER_SS_N128("f16");
+}
+
+// The same at N = 64: D[64 x 64] (+)= A[64 x 16] B[16 x 64].
+#define HOPPER_SS_N64(TY)                                                 \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "         \
+      "{" HOPPER_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                   \
+      : HOPPER_F32(d, 0)                                                  \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    HOPPER_SS_N64("bf16");
+  else
+    HOPPER_SS_N64("f16");
 }
 
 // D[64 x N] += A[64 x 16] B[16 x N], A from registers (mma.sync A

@@ -8,11 +8,18 @@ version (`paged_decode_attention_plain`: gather the pages, then
 `grouped_attention`, or `int8_grouped_attention` with scales) only for
 CPU tensors.  There is no fallback from one to the other: a CUDA tensor
 the kernel cannot take raises.
+
+The kernel splits each row's page walk into chunks (`decode_split`
+picks their length), one block a (row, kv head, chunk), and the last
+block of a (row, kv head) merges the chunks' partial softmaxes.  Its
+scratch (the partials, and one counter a (row, kv head) that the merging
+block resets to 0) is kept per device and stream (`_workspace`), so a
+call allocates and clears nothing beyond its output.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -27,13 +34,63 @@ launches_int8 = 0
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_PS = (8, 16, 32)
-# paged_decode_launch(pointers..., ints..., scale, dtype code, stream).
+# paged_decode_launch(pointers..., ints..., scale, dtype code, stream,
+# workspace, counters, chunk pages).
+_SPLIT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + _SPLIT_ARGS)
 # paged_decode_int8_launch: the same with the two scale pools after the
 # pools.
 _ARGTYPES_INT8 = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                  + _SPLIT_ARGS)
+
+# The kernel's blocks: 4 query rows each (`kRows` in csrc/paged_decode.cu),
+# a chunk of at most SPLIT_POSITIONS positions of one row's walk: of
+# 128-1024, 512 was about the fastest at chip_smoke.py's decode shape on
+# an NVIDIA H100 80GB HBM3 at 700 W (scripts/decode_compare.py --chunks;
+# PERF.md section 6).
+ROWS_PER_BLOCK = 4
+SPLIT_POSITIONS = 512
+H100_SMS = 132
+
+
+def decode_split(n_read: int, page_size: int, units: int,
+                 sms: int = H100_SMS) -> Tuple[int, int]:
+    """(pages a chunk, chunks a row) for the kernel's split page walk.
+
+    `units` = B * kvh * row groups of ROWS_PER_BLOCK query rows: the
+    blocks a chunk count multiplies.  A chunk holds at most
+    SPLIT_POSITIONS positions (so that one long row does not set the
+    kernel's time) and at least one page; within that, chunks are made
+    short enough for the grid to hold two blocks an SM where one page a
+    chunk would.  Every chunk holds at least one page of the walk (the
+    last one the rest); an empty walk is one empty chunk."""
+    if n_read <= 0:
+        return 1, 1
+    cap = max(1, SPLIT_POSITIONS // page_size)
+    want = -(-2 * sms // max(1, units))
+    chunk = max(1, min(cap, n_read // want))
+    return chunk, -(-n_read // chunk)
+
+
+# The kernel's scratch a (device, stream): [f32 partials, int32 merge
+# counters], the counters all 0 between launches (each launch's merging
+# blocks reset theirs).  Grown, never shrunk; the counters' first
+# allocation holds 4096, so their address stays fixed at serving sizes.
+_scratch: Dict[Tuple[torch.device, int], List[torch.Tensor]] = {}
+
+
+def _workspace(device, stream: int, n_work: int,
+               n_counters: int) -> List[torch.Tensor]:
+    ws = _scratch.setdefault((device, stream), [None, None])
+    if ws[0] is None or ws[0].numel() < n_work:
+        ws[0] = torch.empty(max(n_work, 1), dtype=torch.float32,
+                            device=device)
+    if ws[1] is None or ws[1].numel() < n_counters:
+        ws[1] = torch.zeros(max(n_counters, 4096), dtype=torch.int32,
+                            device=device)
+    return ws
 
 
 def paged_decode_attention_plain(q: torch.Tensor, page_key: torch.Tensor,
@@ -91,7 +148,9 @@ def paged_decode_attention(q: torch.Tensor, page_key: torch.Tensor,
 
 
 def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype,
-            scales):
+            scales, chunk_pages: Optional[int] = None):
+    """Launch the kernel; `chunk_pages` overrides `decode_split`'s chunk
+    (the card tests use it to reach other splits)."""
     global launches, launches_int8
     b, h, s, d = q.shape
     n_pages, kvh, ps, dp = page_key.shape
@@ -132,11 +191,22 @@ def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype,
             raise ValueError(f'paged_decode_attention: {name} must be '
                              'contiguous')
     mask3 = mask[:, 0].expand(b, s, read_len).contiguous()
+    if mask3.data_ptr() % 8:   # the kernel reads mask rows 8 bytes a load
+        mask3 = mask3.clone()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    units = b * kvh * -(-(h // kvh * s) // ROWS_PER_BLOCK)
+    if chunk_pages is None:
+        chunk, n_split = decode_split(
+            n_read, ps, units,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    else:
+        chunk, n_split = chunk_pages, max(1, -(-n_read // chunk_pages))
+    work, counters = _workspace(
+        q.device, stream, units * n_split * ROWS_PER_BLOCK * (d + 2), units)
     tail = (table.data_ptr(), mask3.data_ptr(), out.data_ptr(), b, h, s, d,
             kvh, ps, n_read, float(scale), _build.dtype_code(q.dtype),
-            stream)
+            stream, work.data_ptr(), counters.data_ptr(), chunk)
     if scales is None:
         fn = _build.launcher('paged_decode', _ARGTYPES)
         err = fn(q.data_ptr(), page_key.data_ptr(), page_value.data_ptr(),

@@ -9,7 +9,12 @@ Small shapes that reach the kernels' edges: GQA groups of 1 to 8 (more
 query rows than one decode block holds), contexts ending mid-page,
 poisoned null-page entries, sliding windows, multi-query decode masks,
 prefill at ragged bases with kv_mask cutting into the chunk, and each
-supported head dim and page size.
+supported head dim and page size.  The decode kernel's split page walk:
+rows shorter than a chunk, a long row beside 1-position rows, rows that
+see nothing, S 4 masks under a window, f32/bf16/f16 q, chunks of 1 and
+3 pages, and calls back to back (its merge counters must be back at 0).
+The dq pass: its 128-row blocks, 64-column ring and the tiles a consumer
+skips or masks.  f16 outputs hold to the bf16 bounds with u = 2^-11.
 
 Tolerances, per element.  f32 (paged decode only; the prefill kernel
 takes 16-bit types): 1e-4 absolute against the plain version at f32.
@@ -185,6 +190,125 @@ def test_paged_decode_int8_kernel_matches_plain(dev, dtype, h, kvh, d, ps,
         _assert_within_rounding(
             got, pa.paged_decode_attention_plain, (q, pk, pv, table, mask),
             kw, probs_rounded=False)
+
+
+def _split_case(dev, dtype, *, ctxs, s, d, ps, h, kvh, quant, seed,
+                window=None):
+    """Inputs that reach the decode kernel's split walk: query s of a row
+    sees its first ctx + s positions (with a window, only the last
+    `window` of them), table entries past its pages point at the poisoned
+    null page, and a context of 0 is a row that sees nothing (its table
+    full of real pages: its output is the mean of V over the read window,
+    as in the reference)."""
+    g = torch.Generator().manual_seed(seed)
+    b = len(ctxs)
+    n_read = max(3, -(-(max(ctxs) + s - 1) // ps))
+    n_pages = b * n_read + 5
+    pk = torch.randn(n_pages, kvh, ps, d, generator=g)
+    pv = torch.randn(n_pages, kvh, ps, d, generator=g)
+    table = (torch.randperm(n_pages - 1, generator=g)[:b * n_read] + 1
+             ).reshape(b, n_read).to(torch.int32)
+    mask = torch.zeros(b, 1, s, n_read * ps, dtype=torch.bool)
+    for i, c in enumerate(ctxs):
+        if c == 0:
+            continue
+        for qi in range(s):
+            lo = 0 if window is None else max(0, c + qi - window)
+            mask[i, 0, qi, lo:c + qi] = True
+        table[i, -(-(c + s - 1) // ps):] = 0
+    q = torch.randn(b, h, s, d, generator=g)
+    kw = {}
+    if quant:
+        pk, ks = _quantized(pk, True)
+        pv, vs = _quantized(pv, True)
+        kw = dict(key_scale=ks.to(dev), value_scale=vs.to(dev))
+    else:
+        pk[0] = pv[0] = 1e4
+        pk, pv = pk.to(dtype), pv.to(dtype)
+    return [q.to(dev, dtype), pk.to(dev), pv.to(dev), table.to(dev),
+            mask.to(dev)], kw
+
+
+# (contexts, S, d, page size, H, kvh, window)
+SPLIT_EDGES = {
+    'row_shorter_than_a_chunk': ([5, 700], 1, 128, 16, 8, 2, None),
+    'long_row_beside_1_position_rows': ([1000, 1, 1], 1, 128, 16, 8, 2,
+                                        None),
+    'row_sees_nothing': ([0, 300, 2], 1, 64, 8, 4, 2, None),
+    'all_rows_see_nothing': ([0, 0], 1, 128, 16, 4, 1, None),
+    's4_masks': ([200, 3, 0], 4, 128, 16, 4, 2, None),
+    's4_window': ([900, 40], 4, 128, 8, 8, 2, 100),
+    'ps32_d64': ([500, 31], 1, 64, 32, 8, 2, None),
+    'g8_two_row_groups': ([400, 77], 1, 128, 16, 16, 2, None),
+}
+
+
+def _check_decode(got, args, kw, dtype):
+    if dtype == torch.float32:
+        want = pa.paged_decode_attention_plain(*args, scale=kw['scale'],
+                                               probs_dtype=dtype,
+                                               **{k: v for k, v in kw.items()
+                                                  if k != 'scale'})
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        _assert_within_rounding(got, pa.paged_decode_attention_plain,
+                                tuple(args), kw, probs_rounded=False,
+                                u=2.0 ** -11 if dtype == torch.float16
+                                else U_BF16)
+
+
+@pytest.mark.parametrize('chunk', [None, 1, 3], ids=['auto', 'chunk1',
+                                                      'chunk3'])
+@pytest.mark.parametrize('quant', [False, True], ids=['float', 'int8'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=['f32', 'bf16', 'f16'])
+@pytest.mark.parametrize('name', list(SPLIT_EDGES))
+def test_paged_decode_split_edge_cases(dev, name, dtype, quant, chunk):
+    """The split page walk at the decode_split chunk and at chunks of 1
+    and 3 pages (many partials to merge, ragged last chunks, chunks a
+    window leaves with nothing to see)."""
+    ctxs, s, d, ps, h, kvh, window = SPLIT_EDGES[name]
+    args, scales = _split_case(dev, dtype, ctxs=ctxs, s=s, d=d, ps=ps, h=h,
+                               kvh=kvh, quant=quant, seed=3, window=window)
+    kw = dict(scale=d ** -0.5, **scales)
+    before = (pa.launches, pa.launches_int8)
+    if chunk is None:
+        got = pa.paged_decode_attention(*args, probs_dtype=dtype, **kw)
+    else:
+        got = pa._launch(  # pylint: disable=protected-access
+            *args, scale=kw['scale'], probs_dtype=dtype,
+            scales=(scales['key_scale'], scales['value_scale'])
+            if quant else None, chunk_pages=chunk)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.launches_int8) == (
+        before[0] + (not quant), before[1] + quant)
+    assert got.shape == (len(ctxs), s, h, d) and got.dtype == dtype
+    _check_decode(got, args, kw, dtype)
+
+
+@pytest.mark.parametrize('quant', [False, True], ids=['float', 'int8'])
+def test_paged_decode_twice_in_a_row(dev, quant):
+    """Calls on different inputs, shapes and splits, back to back, checked
+    after the last: each merge counter must be back at 0 for the next
+    call, or a later call's rows never merge."""
+    runs = []
+    for seed, (name, chunk) in enumerate((
+            ('row_shorter_than_a_chunk', None),
+            ('row_shorter_than_a_chunk', None),
+            ('g8_two_row_groups', 2), ('row_shorter_than_a_chunk', 1),
+            ('row_shorter_than_a_chunk', None))):
+        ctxs, s, d, ps, h, kvh, window = SPLIT_EDGES[name]
+        args, scales = _split_case(dev, torch.bfloat16, ctxs=ctxs, s=s, d=d,
+                                   ps=ps, h=h, kvh=kvh, quant=quant,
+                                   seed=10 + seed, window=window)
+        got = pa._launch(  # pylint: disable=protected-access
+            *args, scale=d ** -0.5, probs_dtype=torch.bfloat16,
+            scales=(scales['key_scale'], scales['value_scale'])
+            if quant else None, chunk_pages=chunk)
+        runs.append((got, args, dict(scale=d ** -0.5, **scales)))
+    torch.cuda.synchronize()
+    for got, args, kw in runs:
+        _check_decode(got, args, kw, torch.bfloat16)
 
 
 def _prefill_case(dev, dtype, *, bases, s, h, kvh, d, ps, L, true_lens,
@@ -450,6 +574,40 @@ def test_flash_kernels_match_plain(dev, dtype, b, h, kvh, s, d, causal,
                                (out, lse, dq, dk, dv),
                                (out32, lse32) + tuple(grads32)):
         _assert_within(name, got, want, tol[name])
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16],
+                         ids=['bf16', 'f16'])
+@pytest.mark.parametrize('b,h,kvh,s,d,causal,window,offset', [
+    (1, 4, 2, 65, 128, True, None, 0),
+    (1, 4, 2, 191, 64, True, None, 0),
+    (1, 8, 2, 384, 128, True, 100, 0),
+    (1, 4, 2, 320, 128, True, 64, 0),
+    (1, 4, 4, 200, 64, False, None, 0),
+    (2, 4, 1, 256, 128, True, None, 70),
+    (1, 4, 2, 576, 128, True, None, 0),
+    (1, 4, 2, 1024, 64, True, None, 0),
+], ids=['s65', 'ragged_d64', 'window100', 'window64', 'noncausal_d64',
+        'offset70', 's576_odd_tiles', 's1024_d64_even_tiles'])
+def test_flash_dq_kernel_matches_plain(dev, dtype, b, h, kvh, s, d, causal,
+                                       window, offset):
+    """The dq pass's 128-row blocks, 64-column K/V ring and the tiles a
+    consumer warpgroup skips or masks: rows past a tile, windows below and
+    at a tile, a ragged non-causal tile, an offset diagonal, odd and even
+    counts of ring tiles."""
+    q, k, v, do = _flash_case(dev, dtype, b, h, kvh, s, d, seed=2)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, offset=offset)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    before = fa.dq_launches
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert fa.dq_launches == before + 1
+    assert dq.dtype == torch.float32 and dq.shape == q.shape
+    tol = fa.rounding_bounds(q, k, v, do, lse, delta, **kw)
+    f32 = [x.float() for x in (q, k, v, do)]
+    _assert_within('dq', dq, fa.flash_bwd_plain(*f32, lse, delta, **kw)[0],
+                   tol['dq'])
 
 
 @pytest.mark.parametrize('h,kvh,s,window', [(8, 2, 192, None),
