@@ -72,6 +72,28 @@ Phases, any failure exits non-zero:
                INT8_LOGITS_REL_TOL.  Readings only: the int8 cache's
                logits against the bf16 cache's, and the share of greedy
                tokens equal to the bf16 phase's.
+     serve_prefix - a server like serve's (same weights) answers one
+               request with a PREFIX_LEN-token prefix and a SUFFIX_LEN-token
+               suffix, then SHARERS concurrent ones with the same prefix and
+               other suffixes, each of which must share the prefix's
+               PREFIX_LEN / page pages (prefix-hit pages counted by the
+               engine); launches as serve's.  Readings: the peak live pages
+               against the same SHARERS requests served by serve's engine,
+               where nothing of theirs was in the pool; prefill ms of a cold
+               prompt and of a sharer.  Checked: SHARERS sharers of a second
+               prefix, their prefill and first decode step logits against
+               the same prompts prefilled cold by serve's engine: equal bit
+               for bit (PREFIX_LEN is a whole number of chunks, so both
+               compute the same last chunk over the same values); and how
+               many greedy tokens the HTTP sharers have in common with
+               serve's engine's.
+     serve_wint8 - the same server with int8 weights (quantize='int8') and
+               a bf16 KV cache: the weight bytes against serve's, the float
+               branches launch, tokens/s, the device busy ms of a decode
+               step at batch 8 beside serve's (torch.profiler); the first
+               decode step's logits with the kernels and the plain versions
+               within LOGITS_REL_TOL; reading: the gap to serve's logits
+               (bf16 weights) for the same prompt.
      serve_unpaged - the default, unpaged server (page_size 0, a
                contiguous slot cache: the reference runs no kernel there)
                on llama3-8b at full width cut to UNPAGED_LAYERS layers,
@@ -80,6 +102,11 @@ Phases, any failure exits non-zero:
                the same model served paged with kernel='xla': equal
                greedy tokens, and first decode step logits within
                UNPAGED_LOGITS_REL_TOL of max |logit|.
+     serve_static - the server with --no-continuous (continuous=False, the
+               request-level InferenceEngine) on the same model and
+               weights: the serve_unpaged prompts in one /generate batch of
+               4, no kernel launched, greedy tokens equal to
+               serve_unpaged's.
   5. train   - `python -m skypilot_tpu_torch.train` (its `main`) on
                llama3-8b at its published widths, depth cut to 4 layers,
                batch 2 x seq 4096, 5 steps (bf16 compute, f32 params and
@@ -95,8 +122,9 @@ Phases, any failure exits non-zero:
                test).
   6. summary - one JSON line {"kernels": [...]} with each kernel's route,
                source, the TPU kernel it replaces, its launches on its
-               path (serve phase, serve_int8 phase, train phase), error,
-               times and bound; the int8 entries carry "branch": "quant".
+               path (serve phase, serve_int8 phase, train phase) and in
+               every phase ("launches_by_phase"), error, times and bound;
+               the int8 entries carry "branch": "quant".
                The prefill entry's times and bound are the base-1536
                chunk's, its max_abs_err the worst over the three chunks
                and the edge cases, and `cases` holds each one's numbers
@@ -169,7 +197,16 @@ INT8_LOGITS_REL_TOL = 0.063
 # formulations of a random-weight model part ways by rounding alone.
 UNPAGED_LAYERS = 4
 UNPAGED_NEW = 16
-UNPAGED_LENS = (40, 700, 1500)
+UNPAGED_LENS = (40, 230, 700, 1500)
+# Prefix sharing: a 2048-token prefix (128 pages of 16) and 64-token
+# suffixes; SHARERS requests share it after the first.
+PREFIX_LEN, SUFFIX_LEN, SHARERS = 2048, 64, 7
+# A sharer's logits against the same prompt prefilled cold: the prefix's
+# pages hold what the cold prefill's first PREFIX_LEN / 512 chunks wrote,
+# and both run the same last chunk over the same values at the same base
+# and shapes, so any difference is a hydrate fault (a wrong page,
+# position, layer or scale), not rounding.
+PREFIX_LOGITS_GAP = 0.0
 UNPAGED_LOGITS_REL_TOL = 1e-4
 # Training: llama3-8b widths at 4 of its 32 layers, to keep the run short
 # (f32 params, grads and two AdamW moments are 16 bytes a parameter: 128
@@ -786,26 +823,27 @@ SERVE_KERNELS = ('paged_decode', 'ragged_prefill')
 SERVE_KERNELS_INT8 = ('paged_decode_int8', 'ragged_prefill_int8')
 
 
-def _start_server(dev, kv_cache_dtype: str):
+def _start_server(dev, kv_cache_dtype: str, quantize=None):
     """The port's InferenceServer on llama3-8b at full width and depth
     (random bf16 weights from the engine's seed 0, so every call serves
-    the same weights), answering on a free localhost port.  Returns
-    (server, its HTTP thread, base url)."""
+    the same weights; with quantize='int8' their int8 quantization),
+    answering on a free localhost port.  Returns (server, its HTTP
+    thread, base url)."""
     from skypilot_tpu_torch.infer import server as server_lib
     t0 = time.perf_counter()
     srv = server_lib.InferenceServer(
         model='llama3-8b', port=0, host='127.0.0.1', max_batch_size=8,
         max_seq_len=4096, prefill_chunk=512, page_size=16,
         allow_random_weights=True, kv_cache_dtype=kv_cache_dtype,
-        device=dev)
+        quantize=quantize, device=dev)
     eng = srv.engine
     cfg = eng.config
     log(f'serve[{kv_cache_dtype}]: llama3-8b dim {cfg.dim} layers '
         f'{cfg.n_layers} heads {cfg.n_heads}/{cfg.n_kv_heads} ffn '
-        f'{cfg.ffn_dim} vocab {cfg.vocab_size} {cfg.dtype}, KV cache '
-        f'{eng.kv_cache_dtype}; kernels decode={eng.decode_kernel} '
-        f'prefill={eng.prefill_kernel}; ready in '
-        f'{time.perf_counter() - t0:.1f}s, '
+        f'{cfg.ffn_dim} vocab {cfg.vocab_size} {cfg.dtype}, weights '
+        f'{quantize or cfg.param_dtype}, KV cache {eng.kv_cache_dtype}; '
+        f'kernels decode={eng.decode_kernel} prefill={eng.prefill_kernel}; '
+        f'ready in {time.perf_counter() - t0:.1f}s, '
         f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
     if (eng.decode_kernel, eng.prefill_kernel) != ('fused', 'fused'):
         raise AssertionError('serving path does not run the CUDA kernels')
@@ -826,16 +864,10 @@ SAMPLED_LENS = [300, 1000]
 SERVE_NEW = 32
 
 
-def _serve_main_path(url: str, vocab: int, rng, kv_cache_dtype: str):
-    """The main path: 8 concurrent greedy and 2 sampled /generate
-    requests, with every launch count set to 0 just before and read just
-    after.  Returns (completions, launches, the requests)."""
-    reqs = [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
-                 max_new_tokens=SERVE_NEW, temperature=0.0)
-            for n in GREEDY_LENS]
-    reqs += [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
-                  max_new_tokens=SERVE_NEW, temperature=0.8, top_k=50,
-                  top_p=0.9, seed=i) for i, n in enumerate(SAMPLED_LENS)]
+def _post_all(url: str, reqs: list) -> tuple:
+    """POST each request to /generate from its own thread, all at once;
+    (first completion of each, seconds until the last answered).  Raises
+    when a request fails."""
     out = [None] * len(reqs)
     errors = []
 
@@ -845,7 +877,6 @@ def _serve_main_path(url: str, vocab: int, rng, kv_cache_dtype: str):
         except Exception as e:  # pylint: disable=broad-except
             errors.append(repr(e))
 
-    _reset_launch_counts()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=one, args=(i,))
                for i in range(len(reqs))]
@@ -853,75 +884,129 @@ def _serve_main_path(url: str, vocab: int, rng, kv_cache_dtype: str):
         t.start()
     for t in threads:
         t.join(timeout=900)
-    burst_s = time.perf_counter() - t0
-    launches = {k: v for k, v in _launch_counts().items()
-                if k in SERVE_KERNELS + SERVE_KERNELS_INT8}
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f'requests failed: {errors}')
-    for toks in out:
-        if len(toks) != SERVE_NEW or not all(0 <= t < vocab for t in toks):
-            raise AssertionError(f'bad completion: {toks}')
-    log(f'serve[{kv_cache_dtype}]: {len(reqs)} concurrent requests, '
-        f'{sum(GREEDY_LENS + SAMPLED_LENS)} prompt tokens, '
-        f'{len(reqs) * SERVE_NEW} generated, in {burst_s:.2f}s; launches '
-        f'{launches}')
+    return out, time.perf_counter() - t0
+
+
+def _check_branches(launches: dict, kv_cache_dtype: str, tag: str) -> None:
+    """Serving from a `kv_cache_dtype` cache launches only that cache's
+    branches of kernels 4 and 5, each at least once."""
     ran, idle = ((SERVE_KERNELS_INT8, SERVE_KERNELS)
                  if kv_cache_dtype == 'int8'
                  else (SERVE_KERNELS, SERVE_KERNELS_INT8))
     if min(launches[k] for k in ran) <= 0 or any(launches[k] for k in idle):
-        raise AssertionError(f'{kv_cache_dtype} serving must launch only '
-                             f'{ran}, each at least once: {launches}')
+        raise AssertionError(f'{tag} serving must launch only {ran}, each '
+                             f'at least once: {launches}')
+
+
+def _serve_main_path(url: str, vocab: int, rng, kv_cache_dtype: str,
+                     tag=None):
+    """The main path: 8 concurrent greedy and 2 sampled /generate
+    requests, with every launch count set to 0 just before and read just
+    after.  Returns (completions, launches, the requests)."""
+    tag = tag or kv_cache_dtype
+    reqs = [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
+                 max_new_tokens=SERVE_NEW, temperature=0.0)
+            for n in GREEDY_LENS]
+    reqs += [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
+                  max_new_tokens=SERVE_NEW, temperature=0.8, top_k=50,
+                  top_p=0.9, seed=i) for i, n in enumerate(SAMPLED_LENS)]
+    _reset_launch_counts()
+    out, burst_s = _post_all(url, reqs)
+    launches = _launch_counts()
+    for toks in out:
+        if len(toks) != SERVE_NEW or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f'bad completion: {toks}')
+    log(f'serve[{tag}]: {len(reqs)} concurrent requests, '
+        f'{sum(GREEDY_LENS + SAMPLED_LENS)} prompt tokens, '
+        f'{len(reqs) * SERVE_NEW} generated, in {burst_s:.2f}s; launches '
+        f'{launches}')
+    _check_branches(launches, kv_cache_dtype, tag)
     return out, launches, reqs
 
 
-def _serve_repeat_and_rates(url: str, vocab: int, rng, reqs, out,
-                            kv_cache_dtype: str) -> dict:
-    """A repeated greedy prompt gives the same tokens; prefill and decode
-    tokens/s over HTTP."""
+def _serve_repeat_and_rates(url: str, eng, rng, reqs, out,
+                            tag: str) -> dict:
+    """A repeated greedy prompt gives the same tokens (the second request
+    shares the first's prompt pages); prefill and decode tokens/s over
+    HTTP, on prompts no earlier request registered: no page is shared
+    while the rates are timed."""
+    vocab = eng.config.vocab_size
     rep = reqs[1]
     first = _post(url + '/generate', rep)['tokens'][0]
     second = _post(url + '/generate', rep)['tokens'][0]
     if first != second:
         raise AssertionError(f'greedy repeat differs: {first} {second}')
-    log(f'serve[{kv_cache_dtype}]: repeated greedy prompt identical '
+    log(f'serve[{tag}]: repeated greedy prompt identical '
         f'({len(first)} tokens; equal to its burst completion: '
         f'{first == out[1]})')
+    hits0 = eng.prefix_hit_pages
     # Prefill throughput: one 3000-token prompt, time to its one token.
     long_req = dict(prompt_ids=[rng.randint(0, vocab, 3000).tolist()],
                     max_new_tokens=1)
     t0 = time.perf_counter()
     _post(url + '/generate', long_req)
     prefill_tps = 3000 / (time.perf_counter() - t0)
-    # Decode throughput at batch 8: 33- minus 1-token runs of 8 prompts.
-    batch = [rng.randint(0, vocab, 64).tolist() for _ in range(8)]
+    # Decode throughput at batch 8: 33- minus 1-token runs, each over 8
+    # new prompts of 64 tokens, so that both prefill the same work.
+    batches = [[rng.randint(0, vocab, 64).tolist() for _ in range(8)]
+               for _ in range(2)]
     t0 = time.perf_counter()
-    _post(url + '/generate', dict(prompt_ids=batch, max_new_tokens=1))
+    _post(url + '/generate', dict(prompt_ids=batches[0], max_new_tokens=1))
     t1 = time.perf_counter()
-    _post(url + '/generate', dict(prompt_ids=batch, max_new_tokens=33))
+    _post(url + '/generate', dict(prompt_ids=batches[1], max_new_tokens=33))
     t2 = time.perf_counter()
+    if eng.prefix_hit_pages != hits0:
+        raise AssertionError(f'serve[{tag}]: the timed requests shared pages')
     decode_tps = 8 * 32 / ((t2 - t1) - (t1 - t0))
-    log(f'serve[{kv_cache_dtype}]: prefill {prefill_tps:.1f} tokens/s (one '
+    log(f'serve[{tag}]: prefill {prefill_tps:.1f} tokens/s (one '
         f'3000-token prompt over HTTP, first token included); decode '
         f'{decode_tps:.1f} tokens/s at batch 8 (33- minus 1-token runs)')
     return dict(prefill_tps=prefill_tps, decode_tps=decode_tps)
 
 
-def phase_serve(dev) -> dict:
-    """bf16 KV cache.  Returns the launches, the greedy completions, the
-    pools' bytes, and one 700-token prompt with its first decode step's
-    logits through the kernels (for serve_int8's readings)."""
+def decode_busy_ms(eng, steps: int = 16):
+    """Device busy ms of one decode step at batch 8 (8 live slots over
+    64-token prompts): the union of the kernels' intervals in a
+    torch.profiler trace of `steps` steps, as scripts/port_profile.py's
+    decode window measures it.  None when the trace holds no device
+    event."""
     from skypilot_tpu_torch.infer import engine as engine_lib
-    srv, http_thread, url = _start_server(dev, 'auto')
-    eng = srv.engine
-    vocab = eng.config.vocab_size
-    rng = np.random.RandomState(3)
-    out, launches, reqs = _serve_main_path(url, vocab, rng, 'auto')
-    _serve_repeat_and_rates(url, vocab, rng, reqs, out, 'auto')
-    srv.shutdown()
-    http_thread.join(timeout=30)
+    rng = np.random.RandomState(9)
+    for _ in range(8):
+        eng.submit(rng.randint(0, eng.config.vocab_size, 64).tolist(),
+                   engine_lib.SamplingConfig(max_new_tokens=steps + 4))
+    eng.step()      # admits and prefills all 8, first decode step
+    eng.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run_until_idle()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return union_us(spans) / steps / 1e3 if spans else None
 
-    # First decode step of one request: kernels vs plain versions.
-    prompt = rng.randint(0, vocab, 700).tolist()
+
+def union_us(spans) -> float:
+    """Length of the union of (start, end) intervals: a trace's device
+    busy time (scripts/port_profile.py reads it too)."""
+    busy, hi = 0.0, float('-inf')
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, hi))
+        hi = max(hi, b)
+    return busy
+
+
+def first_step_check(eng, prompt, tag: str) -> torch.Tensor:
+    """The first decode step of `prompt` through the kernels and through
+    their plain versions over the same cache: within LOGITS_REL_TOL of
+    max |logit|.  Returns the kernels' logits [V] (CPU, f32)."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
     rid = eng.submit(prompt, engine_lib.SamplingConfig(max_new_tokens=4))
     while all(s is None for s in eng._slots):  # pylint: disable=protected-access
         eng._schedule_front()  # pylint: disable=protected-access
@@ -930,18 +1015,200 @@ def phase_serve(dev) -> dict:
     row = next(i for i, s in enumerate(eng._slots) if s is not None)  # pylint: disable=protected-access
     diff = (fused[row] - plain[row]).abs().max().item()
     scale = plain[row].abs().max().item()
-    log(f'serve: first decode step logits, kernels vs plain: max abs diff '
+    log(f'{tag}: first decode step logits, kernels vs plain: max abs diff '
         f'{diff:.3e}, max |logit| {scale:.3e} (tolerance '
         f'{LOGITS_REL_TOL} x max |logit|), argmax equal '
         f'{int(fused[row].argmax()) == int(plain[row].argmax())}')
     if not (torch.isfinite(fused[row]).all()
             and diff <= LOGITS_REL_TOL * scale):
-        raise AssertionError('kernel logits disagree with the plain path')
+        raise AssertionError(f'{tag}: kernel logits disagree with the plain '
+                             'path')
     eng.cancel(rid)
     eng.step()
+    return fused[row].cpu()
+
+
+def weight_bytes(eng) -> int:
+    """Bytes of the model's weights (int8 weights with their scales)."""
+    return sum(t.nbytes for t in eng.model.state_dict().values())
+
+
+def phase_serve(dev) -> dict:
+    """bf16 KV cache.  Returns the launches, the greedy completions, the
+    pools' and weights' bytes, a decode step's busy ms, one 700-token
+    prompt with its first decode step's logits through the kernels (for
+    serve_int8's and serve_wint8's readings), and the engine (serve_prefix
+    prefills cold on it)."""
+    srv, http_thread, url = _start_server(dev, 'auto')
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    rng = np.random.RandomState(3)
+    out, launches, reqs = _serve_main_path(url, vocab, rng, 'auto')
+    _serve_repeat_and_rates(url, eng, rng, reqs, out, 'auto')
+    srv.shutdown()
+    http_thread.join(timeout=30)
+    busy = decode_busy_ms(eng)
+    log(f'serve: decode step at batch 8, device busy {busy} ms; weights '
+        f'{weight_bytes(eng)} bytes')
+    # First decode step of one request: kernels vs plain versions.
+    prompt = rng.randint(0, vocab, 700).tolist()
+    logits = first_step_check(eng, prompt, 'serve')
     return dict(launches=launches, greedy=out[:len(GREEDY_LENS)],
                 pool_bytes=eng._cache.nbytes(),  # pylint: disable=protected-access
-                prompt=prompt, logits=fused[row].cpu())
+                weight_bytes=weight_bytes(eng), decode_busy_ms=busy,
+                prompt=prompt, logits=logits, engine=eng)
+
+
+def prefill_ms(eng, prompt) -> float:
+    """Wall ms from submitting `prompt` to its slot going live (admission,
+    hydrate, every chunk step, the insert), the device synchronized at
+    both ends; the slot is freed again."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = eng.submit(prompt, engine_lib.SamplingConfig(max_new_tokens=4))
+    while not any(s is not None and s.request_id == rid
+                  for s in eng._slots):  # pylint: disable=protected-access
+        eng._schedule_front()  # pylint: disable=protected-access
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    eng.cancel(rid)
+    eng.step()
+    return ms
+
+
+def phase_serve_prefix(dev, cold) -> dict:
+    """Prefix sharing on a server like serve's (same weights); `cold` is
+    serve's engine, which has none of these prompts in its pool."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    gc.collect()
+    srv, http_thread, url = _start_server(dev, 'auto')
+    eng = srv.engine
+    alloc = eng._alloc  # pylint: disable=protected-access
+    vocab = eng.config.vocab_size
+    rng = np.random.RandomState(8)
+    pages = PREFIX_LEN // PS
+
+    def prompts_of(prefix, n):
+        return [prefix + rng.randint(0, vocab, SUFFIX_LEN).tolist()
+                for _ in range(n)]
+
+    prompts = prompts_of(rng.randint(0, vocab, PREFIX_LEN).tolist(),
+                         1 + SHARERS)
+    # The main path: every count set to 0 just before, read just after.
+    _reset_launch_counts()
+    eng.prefix_hit_pages = eng.prefix_miss_pages = 0
+    alloc.peak_live_pages = alloc.live_pages
+    t0 = time.perf_counter()
+    first = _post(url + '/generate', dict(
+        prompt_ids=[prompts[0]], max_new_tokens=SERVE_NEW))['tokens'][0]
+    t1 = time.perf_counter()
+    out, burst_s = _post_all(url, [dict(prompt_ids=[p],
+                                        max_new_tokens=SERVE_NEW)
+                                   for p in prompts[1:]])
+    launches = _launch_counts()
+    hits, misses = eng.prefix_hit_pages, eng.prefix_miss_pages
+    peak = alloc.peak_live_pages
+    srv.shutdown()
+    http_thread.join(timeout=30)
+    log(f'serve_prefix: one request of a {PREFIX_LEN}-token prefix and a '
+        f'{SUFFIX_LEN}-token suffix in {t1 - t0:.2f}s, then {SHARERS} '
+        f'concurrent sharers in {burst_s:.2f}s ({SERVE_NEW} new tokens '
+        f'each); prefix-hit pages {hits} (expected {SHARERS * pages}), '
+        f'pages allocated {misses}; peak live pages {peak}; launches '
+        f'{launches}')
+    for toks in [first] + out:
+        if len(toks) != SERVE_NEW or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f'bad completion: {toks}')
+    _check_branches(launches, 'auto', 'serve_prefix')
+    if hits != SHARERS * pages:
+        raise AssertionError(f'serve_prefix: {hits} prefix-hit pages, '
+                             f'expected {SHARERS * pages}')
+    # The same sharers on serve's engine, admitted together with nothing
+    # of theirs in its pool: no page shared.
+    cold_alloc = cold._alloc  # pylint: disable=protected-access
+    cold_alloc.peak_live_pages = cold_alloc.live_pages
+    cold_hits = cold.prefix_hit_pages
+    want = cold.generate(prompts[1:], engine_lib.SamplingConfig(
+        max_new_tokens=SERVE_NEW))
+    cold_peak = cold_alloc.peak_live_pages
+    if cold.prefix_hit_pages != cold_hits:
+        raise AssertionError('serve_prefix: the cold engine shared pages')
+    agree = sum(a == b for x, y in zip(out, want) for a, b in zip(x, y))
+    log(f'serve_prefix: the same {SHARERS} requests without sharing (serve\'s '
+        f'engine): peak live pages {cold_peak} against {peak} shared; greedy '
+        f'tokens equal at the same position {agree} of {SHARERS * SERVE_NEW}')
+    # Prefill time, cold (5 chunk steps) and sharing (the prefix's pages
+    # hydrated, one 64-token chunk), each twice over new prompts.
+    prefixes = [rng.randint(0, vocab, PREFIX_LEN).tolist() for _ in range(2)]
+    cold_ms = [prefill_ms(eng, prompts_of(p, 1)[0]) for p in prefixes]
+    hits0 = eng.prefix_hit_pages
+    shared_ms = [prefill_ms(eng, prompts_of(p, 1)[0]) for p in prefixes]
+    if eng.prefix_hit_pages - hits0 != 2 * pages:
+        raise AssertionError('serve_prefix: timed sharers did not share')
+    log(f'serve_prefix: prefill ms of a {PREFIX_LEN + SUFFIX_LEN}-token '
+        f'prompt, cold {[round(x, 2) for x in cold_ms]}, sharing its '
+        f'{PREFIX_LEN}-token prefix {[round(x, 2) for x in shared_ms]}')
+    # Sharers of the first timed prefix against the same prompts
+    # prefilled cold: prefill and first decode step logits.
+    check = prompts_of(prefixes[0], SHARERS)
+    hits0 = eng.prefix_hit_pages
+    got = first_step_logits(eng, check, 'fused')
+    if eng.prefix_hit_pages - hits0 != SHARERS * pages:
+        raise AssertionError('serve_prefix: checked sharers did not share')
+    ref = unshared_first_step_logits(cold, check, 'fused')
+    gaps = []
+    for g, w in zip(got, ref):
+        ok = bool(torch.isfinite(g).all())
+        gaps.append(max(((g[i] - w[i]).abs().max() / w[i].abs().max()).item()
+                        if ok else float('inf') for i in range(SHARERS)))
+    log(f'serve_prefix: {SHARERS} sharers against the same prompts '
+        f'prefilled cold, max abs diff over max |logit|: prefill '
+        f'{gaps[0]:.3e}, first decode step {gaps[1]:.3e} (limit '
+        f'{PREFIX_LOGITS_GAP})')
+    if not max(gaps) <= PREFIX_LOGITS_GAP:
+        raise AssertionError('serve_prefix: shared prefill disagrees with '
+                             'cold prefill')
+    return dict(launches=launches, hits=hits, peak=peak,
+                cold_peak=cold_peak, cold_ms=cold_ms, shared_ms=shared_ms,
+                gaps=gaps, agree=agree)
+
+
+def phase_serve_wint8(dev, bf16: dict) -> dict:
+    """int8 weights, bf16 KV cache, after the bf16 servers are freed: the
+    same requests as serve's; the weight bytes and a decode step's busy
+    ms against serve's; the kernels against their plain versions on the
+    int8 weights; reading: the gap to the bf16 weights' logits."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv, http_thread, url = _start_server(dev, 'auto', quantize='int8')
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    nbytes = weight_bytes(eng)
+    log(f'serve_wint8: weights {nbytes} bytes (int8 with f32 scales) '
+        f'against {bf16["weight_bytes"]} for bf16 weights (an f32 head), '
+        f'ratio {nbytes / bf16["weight_bytes"]:.4f}')
+    rng = np.random.RandomState(3)
+    out, launches, reqs = _serve_main_path(url, vocab, rng, 'auto',
+                                           tag='wint8')
+    rates = _serve_repeat_and_rates(url, eng, rng, reqs, out, 'wint8')
+    srv.shutdown()
+    http_thread.join(timeout=30)
+    busy = decode_busy_ms(eng)
+    log(f'serve_wint8: decode step at batch 8, device busy {busy} ms '
+        f'against {bf16["decode_busy_ms"]} ms with bf16 weights')
+    logits = first_step_check(eng, bf16['prompt'], 'serve_wint8')
+    ref = bf16['logits']
+    gap = (logits - ref).abs().max().item() / ref.abs().max().item()
+    agree = np.mean([a == b for x, y in zip(out, bf16['greedy'])
+                     for a, b in zip(x, y)])
+    log(f'serve_wint8: reading, first decode step logits of the same '
+        f'700-token prompt, int8 weights against bf16 weights: max abs diff '
+        f'over max |logit| {gap:.5f}, argmax equal '
+        f'{int(logits.argmax()) == int(ref.argmax())}; greedy tokens equal '
+        f'to the bf16 phase at the same position: {agree:.4f}')
+    return dict(launches=launches, weight_bytes=nbytes, decode_busy_ms=busy,
+                bf16_gap=gap, **rates)
 
 
 def first_step_logits(eng, prompts, kernel: str, last=None):
@@ -974,6 +1241,22 @@ def first_step_logits(eng, prompts, kernel: str, last=None):
     return prefill, decode
 
 
+def unshared_first_step_logits(eng, prompts, kernel: str, last=None):
+    """`first_step_logits` with every token prefilled by `kernel`: the
+    paged engine's prefix registrations are dropped first (no slot may
+    be live), and the run must share no page."""
+    alloc = eng._alloc  # pylint: disable=protected-access
+    if alloc.live_pages:
+        raise AssertionError(f'{alloc.live_pages} pages live before an '
+                             'unshared prefill')
+    alloc.reset()
+    hits0 = eng.prefix_hit_pages
+    out = first_step_logits(eng, prompts, kernel, last)
+    if eng.prefix_hit_pages != hits0:
+        raise AssertionError('an unshared prefill shared pages')
+    return out
+
+
 def int8_logit_gaps(eng, prompts) -> list:
     """The int8 serving path's logits through the kernels against the
     plain versions, each prompt prefilled and decoded one step by each:
@@ -983,9 +1266,9 @@ def int8_logit_gaps(eng, prompts) -> list:
     take the token the kernels' prefill logits give: where the two
     prefills' greedy tokens differ (their logits are a few percent
     apart), decode steps over different tokens have nothing to agree
-    on."""
-    got = first_step_logits(eng, prompts, 'fused')
-    want = first_step_logits(eng, prompts, 'plain', last=got[0])
+    on.  Neither pass shares a page: each prefills every token itself."""
+    got = unshared_first_step_logits(eng, prompts, 'fused')
+    want = unshared_first_step_logits(eng, prompts, 'plain', last=got[0])
     same = (got[0].argmax(-1) == want[0].argmax(-1)).tolist()
     log(f'int8 logits check: greedy token of the kernels\' prefill equal '
         f'to the plain versions\' for each prompt: {same}')
@@ -1027,7 +1310,7 @@ def phase_serve_int8(dev, bf16: dict) -> dict:
         f'{pool_bytes / bf16["pool_bytes"]:.4f}')
     rng = np.random.RandomState(3)
     out, launches, reqs = _serve_main_path(url, vocab, rng, 'int8')
-    rates = _serve_repeat_and_rates(url, vocab, rng, reqs, out, 'int8')
+    rates = _serve_repeat_and_rates(url, eng, rng, reqs, out, 'int8')
     srv.shutdown()
     http_thread.join(timeout=30)
     greedy = out[:len(GREEDY_LENS)]
@@ -1059,9 +1342,10 @@ def phase_serve_int8(dev, bf16: dict) -> dict:
                 bf16_gap=gap, greedy_agree=float(agree), **rates)
 
 
-def phase_serve_unpaged(dev) -> None:
+def phase_serve_unpaged(dev) -> dict:
     """The default, unpaged server at f32 and reduced depth: no kernel
-    launches; held to the same model served paged with kernel='xla'."""
+    launches; held to the same model served paged with kernel='xla'.
+    Returns the launches, the prompts and their greedy completions."""
     from skypilot_tpu_torch.infer import engine as engine_lib
     from skypilot_tpu_torch.infer import server as server_lib
     from skypilot_tpu_torch.models import llama as llama_lib
@@ -1092,32 +1376,16 @@ def phase_serve_unpaged(dev) -> None:
     vocab = eng.config.vocab_size
     rng = np.random.RandomState(6)
     prompts = [rng.randint(0, vocab, n).tolist() for n in UNPAGED_LENS]
-    out = [None] * len(prompts)
-    errors = []
-
-    def one(i):
-        try:
-            out[i] = _post(url + '/generate', dict(
-                prompt_ids=[prompts[i]], max_new_tokens=UNPAGED_NEW,
-                temperature=0.0))['tokens'][0]
-        except Exception as e:  # pylint: disable=broad-except
-            errors.append(repr(e))
-
     # The main path: every count set to 0 just before, read just after.
     _reset_launch_counts()
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=one, args=(i,))
-               for i in range(len(prompts))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    burst_s = time.perf_counter() - t0
-    launches = _launch_counts()
-    srv.shutdown()
-    http_thread.join(timeout=30)
-    if errors or any(t.is_alive() for t in threads):
-        raise AssertionError(f'unpaged requests failed: {errors}')
+    try:
+        out, burst_s = _post_all(url, [dict(
+            prompt_ids=[p], max_new_tokens=UNPAGED_NEW, temperature=0.0)
+            for p in prompts])
+    finally:
+        launches = _launch_counts()
+        srv.shutdown()
+        http_thread.join(timeout=30)
     log(f'serve_unpaged: {len(prompts)} concurrent greedy requests '
         f'({list(UNPAGED_LENS)} prompt tokens, {UNPAGED_NEW} new each) in '
         f'{burst_s:.2f}s; launches {launches}')
@@ -1134,7 +1402,7 @@ def phase_serve_unpaged(dev) -> None:
         **kw)
     want = paged.generate(prompts, engine_lib.SamplingConfig(
         max_new_tokens=UNPAGED_NEW))
-    paged_logits = first_step_logits(paged, prompts, 'xla')[1]
+    paged_logits = unshared_first_step_logits(paged, prompts, 'xla')[1]
     del paged
     gc.collect()
     torch.cuda.empty_cache()
@@ -1148,6 +1416,59 @@ def phase_serve_unpaged(dev) -> None:
     if not (same and torch.isfinite(unpaged_logits).all()
             and max(gaps) <= UNPAGED_LOGITS_REL_TOL):
         raise AssertionError('unpaged serving disagrees with paged serving')
+    return dict(launches=launches, prompts=prompts, greedy=out)
+
+
+def phase_serve_static(dev, unpaged: dict) -> dict:
+    """--no-continuous: the request-level InferenceEngine behind the
+    server, on serve_unpaged's model and weights (llama3-8b width,
+    UNPAGED_LAYERS layers, f32, seed 0); serve_unpaged's prompts in one
+    /generate batch of 4.  No kernel may launch; the greedy tokens must be
+    serve_unpaged's."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    srv = server_lib.InferenceServer(
+        model='llama3-8b', port=0, host='127.0.0.1', max_batch_size=4,
+        max_seq_len=4096, continuous=False, allow_random_weights=True,
+        model_overrides={'n_layers': UNPAGED_LAYERS, 'dtype': 'float32'},
+        param_dtype=torch.float32, device=dev)
+    if not isinstance(srv.engine, engine_lib.InferenceEngine):
+        raise AssertionError('--no-continuous did not build InferenceEngine')
+    log(f'serve_static: llama3-8b width, {UNPAGED_LAYERS} layers, f32, '
+        f'request-level engine; ready in {time.perf_counter() - t0:.1f}s, '
+        f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
+    srv.start()
+    http_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    http_thread.start()
+    url = f'http://127.0.0.1:{srv.port}'
+    # The main path: every count set to 0 just before, read just after.
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = _post(url + '/generate', dict(
+            prompt_ids=unpaged['prompts'], max_new_tokens=UNPAGED_NEW,
+            temperature=0.0))['tokens']
+    finally:
+        launches = _launch_counts()
+        srv.shutdown()
+        http_thread.join(timeout=30)
+    same = out == unpaged['greedy']
+    log(f'serve_static: one batch of {len(out)} greedy prompts '
+        f'({list(UNPAGED_LENS)} tokens, {UNPAGED_NEW} new each) in '
+        f'{time.perf_counter() - t0:.2f}s; launches {launches}; tokens equal '
+        f'to the unpaged continuous engine\'s: {same}')
+    if any(launches.values()):
+        raise AssertionError(f'static serving launched a kernel: {launches}')
+    if not same:
+        raise AssertionError('static serving disagrees with continuous '
+                             'serving')
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
 
 
 def _launch_counts() -> dict:
@@ -1291,14 +1612,25 @@ def main() -> int:
     lap('kernel')
     bf16 = phase_serve(dev)
     launches = dict(bf16['launches'])
+    by_phase = {'serve': bf16['launches']}
     lap('serve')
+    by_phase['serve_prefix'] = phase_serve_prefix(
+        dev, bf16.pop('engine'))['launches']
+    lap('serve_prefix')
     int8 = phase_serve_int8(dev, bf16)
     launches.update({k: int8['launches'][k] for k in SERVE_KERNELS_INT8})
-    del bf16, int8
+    by_phase['serve_int8'] = int8['launches']
     lap('serve_int8')
-    phase_serve_unpaged(dev)
+    by_phase['serve_wint8'] = phase_serve_wint8(dev, bf16)['launches']
+    del bf16, int8
+    lap('serve_wint8')
+    unpaged = phase_serve_unpaged(dev)
+    by_phase['serve_unpaged'] = unpaged['launches']
     lap('serve_unpaged')
-    launches.update({k: v for k, v in phase_train(dev).items()
+    by_phase['serve_static'] = phase_serve_static(dev, unpaged)['launches']
+    lap('serve_static')
+    by_phase['train'] = phase_train(dev)
+    launches.update({k: v for k, v in by_phase['train'].items()
                      if k.startswith('flash')})
     lap('train')
     entries = []
@@ -1321,6 +1653,7 @@ def main() -> int:
             name=name, route='cuda',
             source=f'skypilot_tpu_torch/csrc/{src}.cu',
             replaces=replaces, launches=launches[name],
+            launches_by_phase={p: c[name] for p, c in by_phase.items()},
             **({'branch': 'quant'} if name.endswith('_int8') else {}),
             **kernels[name]))
     log(f'card: {card}')

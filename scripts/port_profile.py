@@ -12,6 +12,8 @@ weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
   decode  - 16 decode steps at batch 8 (8 live slots, 64-token prompts);
   prefill_int8, decode_int8 - the same two with the engine freed and
             rebuilt with an int8 KV cache (kv_cache_dtype='int8');
+  prefill_wint8, decode_wint8 - the same two with int8 weights
+            (quantize='int8') and a bf16 KV cache;
   train   - with the engine freed, the port's Trainer on llama3-8b widths
             cut to 4 layers, batch 2 x seq 4096 (random weights from a
             seed): 2 steps after one unprofiled step.
@@ -22,8 +24,8 @@ clock around work that ends in a device synchronize), device busy time
 share, the attention kernels' share, and the kernels that took the most
 device time.  With --trace-dir it also writes each window's Chrome
 trace there; --windows picks some of serve (prefill, decode),
-serve_int8 (their int8 twins) and train (default: all three).  Needs
-one NVIDIA card.
+serve_int8 (their int8-cache twins), serve_wint8 (their int8-weight
+twins) and train (default: all four).  Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+import chip_smoke  # noqa: E402  pylint: disable=wrong-import-position
 
 _ATTENTION = ('paged_decode_kernel', 'ragged_prefill_', 'flash_fwd_kernel',
               'flash_bwd_')
@@ -56,17 +59,7 @@ def _kernel_events(prof):
 
 def _summary(name, prof, wall_s, steps):
     events = _kernel_events(prof)
-    busy = 0.0
-    cur_start = cur_end = None
-    for _, s, e in sorted(events, key=lambda x: x[1]):
-        if cur_end is None or s > cur_end:
-            if cur_end is not None:
-                busy += cur_end - cur_start
-            cur_start, cur_end = s, e
-        else:
-            cur_end = max(cur_end, e)
-    if cur_end is not None:
-        busy += cur_end - cur_start
+    busy = chip_smoke.union_us((s, e) for _, s, e in events)
     by_name = collections.Counter()
     for n, s, e in events:
         by_name[n] += e - s
@@ -85,12 +78,12 @@ def _summary(name, prof, wall_s, steps):
     }
 
 
-def _serve_windows(window, kv_cache_dtype):
+def _serve_windows(window, tag, kv_cache_dtype, quantize=None):
     from skypilot_tpu_torch.infer import engine as engine_lib
     eng = engine_lib.ContinuousBatchingEngine(
         model='llama3-8b', n_slots=8, max_seq_len=4096, prefill_chunk=512,
-        page_size=16, seed=0, kv_cache_dtype=kv_cache_dtype)
-    tag = '_int8' if kv_cache_dtype == 'int8' else ''
+        page_size=16, seed=0, kv_cache_dtype=kv_cache_dtype,
+        quantize=quantize)
     eng.generate([[1, 2, 3]], engine_lib.SamplingConfig(max_new_tokens=2))
     rng = np.random.RandomState(0)
     vocab = eng.config.vocab_size
@@ -142,11 +135,13 @@ def _train_window(window):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--trace-dir', default=None)
-    parser.add_argument('--windows', default='serve,serve_int8,train',
-                        help='comma-separated: serve, serve_int8, train')
+    parser.add_argument('--windows',
+                        default='serve,serve_int8,serve_wint8,train',
+                        help='comma-separated: serve, serve_int8, '
+                             'serve_wint8, train')
     args = parser.parse_args()
     picked = set(args.windows.split(','))
-    if not picked <= {'serve', 'serve_int8', 'train'}:
+    if not picked <= {'serve', 'serve_int8', 'serve_wint8', 'train'}:
         raise SystemExit(f'port_profile: unknown windows {args.windows}')
     if not torch.cuda.is_available():
         raise SystemExit('port_profile: needs an NVIDIA card')
@@ -167,9 +162,11 @@ def main() -> int:
                 args.trace_dir, f'port_profile_{name}.json'))
         print(json.dumps(_summary(name, prof, wall, steps)), flush=True)
 
-    for name, kv_cache_dtype in (('serve', 'auto'), ('serve_int8', 'int8')):
+    for name, tag, kv_cache_dtype, quantize in (
+            ('serve', '', 'auto', None), ('serve_int8', '_int8', 'int8', None),
+            ('serve_wint8', '_wint8', 'auto', 'int8')):
         if name in picked:
-            _serve_windows(window, kv_cache_dtype)
+            _serve_windows(window, tag, kv_cache_dtype, quantize)
             gc.collect()
             torch.cuda.empty_cache()
     if 'train' in picked:

@@ -12,6 +12,12 @@ F.linear's [out, in]:
   o_proj [H*hd, D]  -> [D, H*hd]      gate/up [D, F] -> [F, D]
   down   [F, D]     -> [D, F]         lm_head [D, V] -> [V, D]
   tok_embed [V, D] and the norms' `scale` [D] carry over as they are.
+
+A tree quantized by the reference's `quantize_params_int8` holds
+{'q8', 'scale'} leaves in place of the kernels and of tok_embed: q8
+takes the float leaf's place, and its scale ([1, *out], one per output
+column of the flax kernel) becomes `<name>_scale` [out, 1], one per row
+of the port's [out, in] weight; tok_embed's scale [1, D] carries over.
 """
 from __future__ import annotations
 
@@ -30,26 +36,41 @@ def _tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _linear(kernel: Any) -> torch.Tensor:
-    """flax [in, *out] kernel -> torch [prod(out), in]."""
+def _is_quantized(leaf: Any) -> bool:
+    return isinstance(leaf, Mapping) and set(leaf) == {'q8', 'scale'}
+
+
+def _linear(name: str, kernel: Any) -> Dict[str, torch.Tensor]:
+    """flax [in, *out] kernel -> {name: torch [prod(out), in]}; a
+    quantized kernel also gives `name_scale` [prod(out), 1]."""
+    if _is_quantized(kernel):
+        q8 = np.asarray(kernel['q8'])
+        return {name: _tensor(q8.reshape(q8.shape[0], -1).T),
+                name + '_scale': _tensor(
+                    np.asarray(kernel['scale']).reshape(-1, 1))}
     k = np.asarray(kernel)
-    return _tensor(k.reshape(k.shape[0], -1).T)
+    return {name: _tensor(k.reshape(k.shape[0], -1).T)}
+
+
+def _embed(leaf: Any) -> Dict[str, torch.Tensor]:
+    if _is_quantized(leaf):
+        return {'tok_embed': _tensor(leaf['q8']),
+                'tok_embed_scale': _tensor(leaf['scale'])}
+    return {'tok_embed': _tensor(leaf)}
 
 
 def _layer(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    att = tree['attention']
-    mlp = tree['mlp']
-    return {
+    out = {
         'attention_norm.weight': _tensor(tree['attention_norm']['scale']),
-        'attention.q_proj': _linear(att['q_proj']['kernel']),
-        'attention.k_proj': _linear(att['k_proj']['kernel']),
-        'attention.v_proj': _linear(att['v_proj']['kernel']),
-        'attention.o_proj': _linear(att['o_proj']['kernel']),
         'mlp_norm.weight': _tensor(tree['mlp_norm']['scale']),
-        'mlp.gate_proj': _linear(mlp['gate_proj']['kernel']),
-        'mlp.up_proj': _linear(mlp['up_proj']['kernel']),
-        'mlp.down_proj': _linear(mlp['down_proj']['kernel']),
     }
+    for part, names in (('attention', ('q_proj', 'k_proj', 'v_proj',
+                                       'o_proj')),
+                        ('mlp', ('gate_proj', 'up_proj', 'down_proj'))):
+        for name in names:
+            out.update(_linear(f'{part}.{name}',
+                               tree[part][name]['kernel']))
+    return out
 
 
 def _unstack(tree: Any, i: int) -> Any:
@@ -61,15 +82,16 @@ def _unstack(tree: Any, i: int) -> Any:
 def params_from_jax(tree: Mapping[str, Any],
                     cfg: Any) -> Dict[str, torch.Tensor]:
     """The port's Llama state_dict (CPU tensors, the tree's dtypes) from
-    a JAX Llama param tree of numpy arrays, scanned or unscanned."""
+    a JAX Llama param tree of numpy arrays, scanned or unscanned, float
+    or int8 (`quantize_params_int8`'s {'q8', 'scale'} leaves)."""
     if 'layers' in tree:
         layers = [_unstack(tree['layers'], i) for i in range(cfg.n_layers)]
     else:
         layers = [tree[f'layer_{i}'] for i in range(cfg.n_layers)]
     out = {
-        'tok_embed': _tensor(tree['tok_embed']),
+        **_embed(tree['tok_embed']),
         'final_norm.weight': _tensor(tree['final_norm']['scale']),
-        'lm_head': _linear(tree['lm_head']['kernel']),
+        **_linear('lm_head', tree['lm_head']['kernel']),
     }
     for i, layer in enumerate(layers):
         for name, t in _layer(layer).items():

@@ -1,8 +1,9 @@
-"""Continuous-batching inference engine over a KV cache, in PyTorch.
+"""Inference engines over a KV cache, in PyTorch.
 
 Port of the synchronous, chunked-prefill path of
 skypilot_tpu/infer/engine.py:ContinuousBatchingEngine, unpaged (the
-reference's default, page_size 0) and paged:
+reference's default, page_size 0) and paged, and of its request-level
+`InferenceEngine` (the server's --no-continuous):
 
   - unpaged, a contiguous slot cache [B, kvh, max_seq_len, hd] per layer
     lives across requests, one row per slot; every decode step advances
@@ -19,6 +20,12 @@ reference's default, page_size 0) and paged:
     into a private batch-1 contiguous cache at a global cursor; at the
     end the insert copies that cache into the slot's row (unpaged) or
     scatters it into the slot's pages (paged);
+  - paged, prompts share their page-aligned prefixes: admission looks
+    up every full prompt page already in the pool (the allocator's
+    chain-hash map, at most one page short of the prompt's end), takes
+    a reference on each, hydrates the prefill cache from them and
+    prefills only the rest; the insert leaves the shared pages as they
+    are, and then registers the prompt's full pages for later requests;
   - with kv_cache_dtype='int8' the caches hold int8 K/V with f32
     per-(kv head, position) scales beside them, read through the
     kernels' int8 branches (or, with 'xla', the reference's int16 x int8
@@ -27,7 +34,13 @@ reference's default, page_size 0) and paged:
   - per-slot temperature, top_k and top_p ride the step as [B] vectors,
     and each sampled row draws from its own torch.Generator seeded from
     (request seed, generated index) - independent of batch companions,
-    the counterpart of the reference's fold_in(seed, generated) key.
+    the counterpart of the reference's fold_in(seed, generated) key;
+  - with quantize='int8' (weight-only int8, `quantize_params_int8`)
+    the model holds int8 weights with f32 scales and dequantizes each
+    just before its use (models/llama.py).
+`InferenceEngine` prefills a whole batch of right-padded prompts at once
+into a contiguous cache and decodes it in lockstep; it runs no kernel,
+as the reference's does not.
 
 Attention runs through the kernels' wrappers ('fused': the CUDA kernels
 on the card, their plain versions on the CPU) or the reference's XLA
@@ -37,7 +50,7 @@ else 'xla', and 'fused' without a paged cache is a ValueError.
 
 Not ported yet (later slices): the async pipeline, speculation, mixed
 prefill budgets, disaggregated handoff, live migration, the host-RAM
-tier, prefix sharing, recovery, metrics and traces.
+tier, recovery, metrics and traces.
 
 Thread model: submit()/cancel()/wait() are thread-safe; step() must be
 driven by ONE thread (the server's decode loop).
@@ -58,7 +71,9 @@ from skypilot_tpu_torch import models as models_lib
 from skypilot_tpu_torch.infer import failures
 from skypilot_tpu_torch.infer import paging as paging_lib
 from skypilot_tpu_torch.models.llama import (PagedCache, PrefillCache,
-                                             SlotCache, resolve_kernel)
+                                             SlotCache, quant_axis,
+                                             quantize_int8_weight,
+                                             resolve_kernel)
 
 NEG_INF = -1e30
 
@@ -190,38 +205,142 @@ def resolve_kernels(decode_kernel: str = 'auto',
     }
 
 
+# -- weight-only int8 ----------------------------------------------------------
+def quantize_params_int8(params: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """Weight-only int8 of a port state_dict, the reference's
+    `quantize_params_int8` in the port's layout: every floating tensor of
+    rank >= 2 (the [out, in] matmul weights, lm_head and tok_embed)
+    becomes int8 at its key with f32 scales at `<key>_scale`, one per
+    output row ([out, 1]; tok_embed's over its vocab axis, [1, D]); the
+    norms stay float.  Bit for bit the reference's on the same values, so
+    cast to param_dtype first, as the reference's engine does."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, x in params.items():
+        if x.is_floating_point() and x.dim() >= 2:
+            out[key], out[key + '_scale'] = quantize_int8_weight(
+                x, quant_axis(key))
+        else:
+            out[key] = x
+    return out
+
+
+def _serving_params(params: Mapping[str, torch.Tensor],
+                    cfg: Any) -> Dict[str, torch.Tensor]:
+    """The state_dict a model of `cfg` loads from `params`: float weights
+    cast to param_dtype (the reference's `_place`), each quantized from
+    that cast when cfg.quantize, one weight at a time; int8 weights and
+    their scales (an already quantized tree) as they are."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, x in params.items():
+        if x.is_floating_point() and not key.endswith('_scale'):
+            x = x.to(cfg.param_dtype)
+            if cfg.quantize and x.dim() >= 2:
+                out.update(quantize_params_int8({key: x}))
+                continue
+        out[key] = x
+    return out
+
+
+def build_model(model: str, params: Optional[Mapping[str, torch.Tensor]],
+                *, n_slots: int, max_seq_len: Optional[int],
+                model_overrides: Optional[Dict[str, Any]], param_dtype: Any,
+                prefill_bucket: int, page_size: int, max_pages: int,
+                quantize: Optional[str], kv_cache_dtype: str, seed: int,
+                device: torch.device) -> Tuple[Any, Any]:
+    """The engines' model and config, as the reference's InferenceEngine
+    builds them: the arguments validated, the page pool sized (every slot
+    can fill its row, +1 for the null page, unless max_pages), and the
+    weights loaded from `params` or drawn from `seed`."""
+    if page_size < 0 or page_size & (page_size - 1):
+        raise ValueError(f'page_size must be 0 (unpaged) or a power of '
+                         f'two, got {page_size}')
+    if page_size and max(1, prefill_bucket) % page_size:
+        raise ValueError(f'page_size ({page_size}) must divide '
+                         f'prefill_bucket ({prefill_bucket})')
+    if max_pages and not page_size:
+        raise ValueError('max_pages requires page_size > 0')
+    overrides = dict(model_overrides or {})
+    overrides.setdefault('param_dtype', param_dtype)
+    overrides.setdefault('kv_cache_dtype', kv_cache_dtype)
+    overrides['quantize'] = quantize
+    if max_seq_len is not None:
+        overrides['max_seq_len'] = max_seq_len
+    peek = models_lib.get_config(model, **overrides)
+    if page_size:
+        if peek.max_seq_len % page_size:
+            raise ValueError(f'page_size ({page_size}) must divide '
+                             f'max_seq_len ({peek.max_seq_len})')
+        overrides.setdefault('kv_page_size', page_size)
+        overrides.setdefault('kv_n_pages', max_pages if max_pages else
+                             n_slots * (peek.max_seq_len // page_size) + 1)
+    net, config = models_lib.get_model(model, device=device, **overrides)
+    net.eval()
+    with torch.no_grad():
+        if params is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            net.init_weights(gen)
+        else:
+            net.load_state_dict(_serving_params(params, config))
+    return net, config
+
+
 # -- paged cache ops (in place) ----------------------------------------------
+def _kv_pairs(a: Any, b: Any) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """(a's, b's) K, V and, for an int8 cache, scale tensors, paired."""
+    pairs = [(a.key, b.key), (a.value, b.value)]
+    if a.key_scale is not None:
+        pairs += [(a.key_scale, b.key_scale), (a.value_scale, b.value_scale)]
+    return pairs
+
+
 def paged_insert(cache: PagedCache, cache1: PrefillCache,
-                 table_row: np.ndarray, slot: int) -> None:
+                 table_row: np.ndarray, slot: int,
+                 copy_start_page: int = 0) -> None:
     """Scatter the batch-1 contiguous prefill cache [L, 1, kvh, S, d]
     into the slot's pool pages [L, n_pages, kvh, ps, d] (in place), the
     scale siblings [.., 1] of an int8 cache likewise, and write its
     block-table row.  `table_row` [pps] lists the slot's pages and is 0
-    (the null page) past them; the null page is left as it is."""
+    (the null page) past them; the null page is left as it is, and so
+    are the pages below `copy_start_page`: a shared prefix already in
+    the pool, never rewritten (the reference sends their writes to the
+    null page)."""
     ps = cache.key.shape[3]
     n_used = int(np.count_nonzero(table_row))
-    phys = torch.as_tensor(table_row[:n_used], dtype=torch.long,
-                           device=cache.key.device)
-    pairs = [(cache.key, cache1.key), (cache.value, cache1.value)]
-    if cache.key_scale is not None:
-        pairs += [(cache.key_scale, cache1.key_scale),
-                  (cache.value_scale, cache1.value_scale)]
-    for pool, src in pairs:
+    phys = torch.as_tensor(table_row[copy_start_page:n_used],
+                           dtype=torch.long, device=cache.key.device)
+    for pool, src in _kv_pairs(cache, cache1):
         L, _, kvh, s, d = src.shape
         content = src[:, 0].reshape(L, kvh, s // ps, ps, d)
-        pool[:, phys] = content[:, :, :n_used].transpose(1, 2).to(pool.dtype)
+        pool[:, phys] = content[:, :, copy_start_page:n_used].transpose(
+            1, 2).to(pool.dtype)
     set_table(cache, table_row, slot)
+
+
+def hydrate(cache1: PrefillCache, cache: PagedCache, table_row: np.ndarray,
+            shared_pages: int, shared_len: int) -> None:
+    """Prefix hit (the reference's `_hydrate`): gather the slot's
+    `shared_pages` leading pages of every layer from the pools, and the
+    scale pools of an int8 cache, into the first `shared_len` positions
+    of the batch-1 prefill cache, and set its cursor to `shared_len`, so
+    the suffix chunks attend to the shared prefix without prefilling it
+    again.  Positions past the prefix are left as they are: each is
+    written by a suffix chunk before a row reads it, or masked off."""
+    phys = torch.as_tensor(table_row[:shared_pages], dtype=torch.long,
+                           device=cache.key.device)
+    for pool, dst in _kv_pairs(cache, cache1):
+        L, _, kvh, _, d = dst.shape
+        dst[:, 0, :, :shared_len] = pool[:, phys].transpose(1, 2).reshape(
+            L, kvh, shared_len, d)
+    cache1.cursor = shared_len
 
 
 def slot_insert(cache: SlotCache, cache1: PrefillCache, slot: int) -> None:
     """Copy the batch-1 prefill cache [L, 1, kvh, max_len, d] into the
     slot's row of the contiguous slot cache (in place), the scale rows of
     an int8 cache likewise: the reference's `make_insert_fn`."""
-    pairs = [(cache.key, cache1.key), (cache.value, cache1.value)]
-    if cache.key_scale is not None:
-        pairs += [(cache.key_scale, cache1.key_scale),
-                  (cache.value_scale, cache1.value_scale)]
-    for rows, src in pairs:
+    for rows, src in _kv_pairs(cache, cache1):
         rows[:, slot] = src[:, 0]
 
 
@@ -270,6 +389,7 @@ class _PendingPrefill:
     table_row: Optional[np.ndarray]   # [pages_per_slot] int32, 0-filled
                                       # tail; None when unpaged
     done: int = 0
+    shared_len: int = 0       # prefix positions already in the pool
     last_row: Optional[torch.Tensor] = None   # logits at the last token
 
 
@@ -293,49 +413,16 @@ class ContinuousBatchingEngine:
                  decode_kernel: str = 'auto',
                  prefill_kernel: str = 'auto',
                  kv_cache_dtype: str = 'auto',
+                 quantize: Optional[str] = None,
                  device: DeviceLike = 'cuda') -> None:
         self.device = resolve_device(device)
-        if page_size < 0 or page_size & (page_size - 1):
-            raise ValueError(f'page_size must be 0 (unpaged) or a power of '
-                             f'two, got {page_size}')
-        if page_size and max(1, prefill_bucket) % page_size:
-            raise ValueError(f'page_size ({page_size}) must divide '
-                             f'prefill_bucket ({prefill_bucket})')
-        if max_pages and not page_size:
-            raise ValueError('max_pages requires page_size > 0')
-        overrides = dict(model_overrides or {})
-        overrides.setdefault('param_dtype', param_dtype)
-        overrides.setdefault('kv_cache_dtype', kv_cache_dtype)
-        if max_seq_len is not None:
-            overrides['max_seq_len'] = max_seq_len
-        peek = models_lib.get_config(model, **overrides)
-        if page_size:
-            if peek.max_seq_len % page_size:
-                raise ValueError(f'page_size ({page_size}) must divide '
-                                 f'max_seq_len ({peek.max_seq_len})')
-            # Default pool: every slot can fill its row, +1 for the null
-            # page.
-            n_pages = max_pages if max_pages else \
-                n_slots * (peek.max_seq_len // page_size) + 1
-            overrides.setdefault('kv_page_size', page_size)
-            overrides.setdefault('kv_n_pages', n_pages)
-        self.model, self.config = models_lib.get_model(
-            model, device=self.device, **overrides)
-        self.model.eval()
+        self.model, self.config = build_model(
+            model, params, n_slots=n_slots, max_seq_len=max_seq_len,
+            model_overrides=model_overrides, param_dtype=param_dtype,
+            prefill_bucket=prefill_bucket, page_size=page_size,
+            max_pages=max_pages, quantize=quantize,
+            kv_cache_dtype=kv_cache_dtype, seed=seed, device=self.device)
         self.loaded_real_weights = params is not None
-        with torch.no_grad():
-            if params is None:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(seed)
-                self.model.init_weights(gen)
-            else:
-                # Cast to param_dtype first, as the reference's _place
-                # does, so every weight holds param_dtype values (the f32
-                # head keeps them exactly).
-                pd = self.config.param_dtype
-                self.model.load_state_dict(
-                    {k: v.to(pd) if v.is_floating_point() else v
-                     for k, v in params.items()})
         kernels = resolve_kernels(decode_kernel, prefill_kernel,
                                   on_cuda=self.device.type == 'cuda',
                                   page_size=page_size)
@@ -375,6 +462,9 @@ class ContinuousBatchingEngine:
         self._submit_lock = threading.Lock()
         self._next_rid = 0
         self._seed0 = seed
+        # Prompt pages found in the pool at admission, and allocated.
+        self.prefix_hit_pages = 0
+        self.prefix_miss_pages = 0
 
     # -- request intake ----------------------------------------------------
     def _page_need(self, true_len: int,
@@ -529,23 +619,43 @@ class ContinuousBatchingEngine:
         true_len = len(prompt)
         pad, need = self._page_need(true_len, cfg)
         pages: List[int] = []
+        shared: List[int] = []
         table_row = None
         if self._alloc is not None:
-            pages = self._alloc.alloc(need)
-            if pages is None:
+            ps = self.page_size
+            # Prefix sharing: reuse every page-aligned prompt page already
+            # in the pool, one page short of the prompt's end at most: its
+            # last token always prefills, as its logits seed decode.
+            cap = min((true_len - 1) // ps, need)
+            shared = self._alloc.lookup_prefix(prompt, max_pages=cap)
+            fresh = self._alloc.alloc(need - len(shared))
+            if fresh is None:
+                self._release_pages(shared)
                 return False
+            self.prefix_hit_pages += len(shared)
+            self.prefix_miss_pages += len(fresh)
+            pages = shared + fresh
             table_row = np.zeros((self._pages_per_slot,), np.int32)
             table_row[:len(pages)] = pages
+        shared_len = len(shared) * self.page_size
         tokens = np.zeros((1, pad), np.int64)
         tokens[0, :true_len] = prompt
-        mask_row = torch.zeros((self.max_seq_len,), dtype=torch.bool,
-                               device=self.device)
-        mask_row[:true_len] = True
+        try:
+            mask_row = torch.zeros((self.max_seq_len,), dtype=torch.bool,
+                                   device=self.device)
+            mask_row[:true_len] = True
+            cache1 = PrefillCache.zeros(self.config, 1, self.device)
+            if shared_len:
+                hydrate(cache1, self._cache, table_row, len(shared),
+                        shared_len)
+        except Exception:
+            self._release_pages(pages)
+            raise
         pending = _PendingPrefill(
             slot_idx=slot_idx, rid=rid, cfg=cfg, true_len=true_len,
-            pad=pad, tokens=tokens, mask_row=mask_row,
-            cache1=PrefillCache.zeros(self.config, 1, self.device),
-            pages=pages, table_row=table_row)
+            pad=pad, tokens=tokens, mask_row=mask_row, cache1=cache1,
+            pages=pages, table_row=table_row, done=shared_len,
+            shared_len=shared_len)
         self._prefills.append(pending)
         if self.prefill_chunk <= 0:
             try:
@@ -597,7 +707,11 @@ class ContinuousBatchingEngine:
         slot = pending.slot_idx
         if self.page_size:
             paged_insert(self._cache, pending.cache1, pending.table_row,
-                         slot)
+                         slot, pending.shared_len // self.page_size)
+            # Publish the prompt's full pages, so that later requests with
+            # the same page-aligned prefix prefill it once.
+            self._alloc.register_prefix(
+                pending.tokens[0, :pending.true_len].tolist(), pending.pages)
         else:
             slot_insert(self._cache, pending.cache1, slot)
         pending.cache1 = None
@@ -841,3 +955,137 @@ class ContinuousBatchingEngine:
                            if r in self._events
                            and not self._events[r].is_set()}
         return [self.wait(r, timeout=0.001) for r in rids]
+
+
+class InferenceEngine:
+    """Request-level batching over a contiguous KV cache: the reference's
+    `InferenceEngine`, which the server runs with --no-continuous.
+
+    `generate` takes up to max_batch_size prompts at once: it right-pads
+    them to a bucketed length s_max and prefills the batch at
+    max_batch_size into a contiguous `PrefillCache` at its global
+    cursor; each decode step then writes every row's token at the cursor
+    s_max + step with rope position length + step, the kv mask revealing
+    it for the rows still active, and each row stops at its eos.  No
+    kernel runs, by the reference's design (its fused kernels need a
+    paged cache); with page_size > 0 `generate` raises, as the
+    reference's does.  Greedy rows take the first maximum; a sampled row
+    i draws its token t from `row_generator(hash((seed, i)), t)`, seeded
+    from the request's seed or else from the engine's and the call's."""
+
+    def __init__(self, model: str = 'llama-tiny',
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 max_batch_size: int = 4,
+                 max_seq_len: Optional[int] = None,
+                 model_overrides: Optional[Dict[str, Any]] = None,
+                 param_dtype: Any = torch.bfloat16,
+                 prefill_bucket: int = 64,
+                 quantize: Optional[str] = None,
+                 kv_cache_dtype: str = 'auto',
+                 page_size: int = 0,
+                 seed: int = 0,
+                 device: DeviceLike = 'cuda') -> None:
+        self.device = resolve_device(device)
+        self.model, self.config = build_model(
+            model, params, n_slots=max_batch_size, max_seq_len=max_seq_len,
+            model_overrides=model_overrides, param_dtype=param_dtype,
+            prefill_bucket=prefill_bucket, page_size=page_size, max_pages=0,
+            quantize=quantize, kv_cache_dtype=kv_cache_dtype, seed=seed,
+            device=self.device)
+        self.page_size = page_size
+        self.max_batch = max_batch_size
+        self.max_seq_len = self.config.max_seq_len
+        self.prefill_bucket = max(1, prefill_bucket)
+        self._seed0 = seed
+        self._generation = 0
+
+    def _bucketed(self, s_max: int) -> int:
+        b = self.prefill_bucket
+        return min(((s_max + b - 1) // b) * b, self.max_seq_len)
+
+    @torch.no_grad()
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 sampling: Optional[SamplingConfig] = None
+                 ) -> List[List[int]]:
+        """Continuations of up to max_batch_size prompts of (possibly)
+        different lengths, one token-id list each."""
+        if self.page_size:
+            raise RuntimeError(
+                'paged KV cache (page_size > 0) requires slot-mode '
+                'serving — use ContinuousBatchingEngine')
+        cfg = sampling or SamplingConfig()
+        n = len(prompts)
+        if n == 0:
+            return []
+        if n > self.max_batch:
+            raise ValueError(
+                f'{n} prompts > max_batch_size={self.max_batch}.')
+        lengths = np.array([len(p) for p in prompts], np.int64)
+        if (lengths <= 0).any():
+            raise ValueError('empty prompt')
+        if any(not 0 <= int(t) < self.config.vocab_size
+               for p in prompts for t in p):
+            raise ValueError(f'prompt token ids must lie in '
+                             f'[0, {self.config.vocab_size})')
+        lmax = int(lengths.max())
+        if lmax + cfg.max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f'prompt ({lmax}) + max_new_tokens ({cfg.max_new_tokens}) '
+                f'exceeds max_seq_len {self.max_seq_len}.')
+        # The padded length is bucketed (near max_seq_len it is clamped
+        # to leave room for the new tokens).
+        s_max = max(min(self._bucketed(lmax),
+                        self.max_seq_len - cfg.max_new_tokens), lmax)
+        b = self.max_batch
+        dev = self.device
+        tokens = np.zeros((b, s_max), np.int64)
+        kv_mask = torch.zeros((b, self.max_seq_len), dtype=torch.bool,
+                              device=dev)
+        for i, p in enumerate(prompts):
+            tokens[i, :len(p)] = [int(t) for t in p]
+            kv_mask[i, :len(p)] = True
+        full_lengths = np.zeros((b,), np.int64)
+        full_lengths[:n] = lengths
+        lengths_t = torch.as_tensor(full_lengths, device=dev)
+        cache = PrefillCache.zeros(self.config, b, dev)
+        x = self.model.hidden(torch.as_tensor(tokens, device=dev),
+                              torch.arange(s_max, device=dev).expand(
+                                  b, s_max), cache, kv_mask)
+        rows = torch.arange(b, device=dev)
+        last = self.model.head(x[rows, (lengths_t - 1).clamp(min=0)])
+        del x
+        self._generation += 1
+        seed = (int(cfg.seed) if cfg.seed is not None
+                else hash((self._seed0, self._generation))) & 0x7FFFFFFF
+        temps = torch.full((b,), cfg.temperature, dtype=torch.float32,
+                           device=dev)
+        top_ks = torch.full((b,), cfg.top_k, dtype=torch.int64, device=dev)
+        top_ps = torch.full((b,), cfg.top_p, dtype=torch.float32,
+                            device=dev)
+        max_k = top_k_bucket(cfg.top_k, self.config.vocab_size)
+        outputs: List[List[int]] = [[] for _ in range(n)]
+        done = np.zeros((b,), bool)
+        done[n:] = True
+        for t in range(cfg.max_new_tokens):
+            gens = [row_generator(hash((seed, i)), t, dev)
+                    if cfg.temperature > 0 else None for i in range(b)]
+            tok = sample_logits_rows(
+                last, gens, temps, top_ks, top_ps, max_k=max_k,
+                use_top_p=cfg.top_p < 1.0,
+                top_p_in_topk=cfg.top_k > 0 and cfg.top_p < 1.0)
+            active = torch.as_tensor(~done, device=dev)
+            toks = tok.cpu().numpy()
+            for i in range(n):
+                if not done[i]:
+                    outputs[i].append(int(toks[i]))
+                    if cfg.eos_id is not None and \
+                            int(toks[i]) == cfg.eos_id:
+                        done[i] = True
+            if done.all() or t + 1 == cfg.max_new_tokens:
+                break
+            # The step's token lands at the cursor s_max + t, revealed for
+            # the rows that were active when it was sampled.
+            kv_mask[:, s_max + t] = active
+            last = self.model(tok[:, None], (lengths_t + t)[:, None], cache,
+                              kv_mask)[:, 0]
+        return outputs

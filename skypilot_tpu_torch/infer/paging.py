@@ -54,6 +54,8 @@ class PageAllocator:
         self._reclaimable: 'collections.OrderedDict[int, int]' = \
             collections.OrderedDict()
         self.cannibalized_total = 0
+        # High-water mark of live_pages (pages with a reference).
+        self.peak_live_pages = 0
 
     @property
     def capacity(self) -> int:
@@ -68,6 +70,9 @@ class PageAllocator:
     @property
     def live_pages(self) -> int:
         return len(self._ref)
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """Take `n` pages with refcount 1 each, or None if they don't all
@@ -89,6 +94,7 @@ class PageAllocator:
                 self.cannibalized_total += 1
             self._ref[page] = 1
             out.append(page)
+        self.peak_live_pages = max(self.peak_live_pages, len(self._ref))
         return out
 
     def retain(self, page: int) -> None:
@@ -100,6 +106,7 @@ class PageAllocator:
                 raise ValueError(f'retain of unallocated page {page}')
             del self._reclaimable[h]
         self._ref[page] = ref + 1
+        self.peak_live_pages = max(self.peak_live_pages, len(self._ref))
 
     def release(self, page: int) -> None:
         """Drop one reference.  At zero, registered prefix pages park in
@@ -129,6 +136,16 @@ class PageAllocator:
         if missing:
             problems.append(f'{missing} page(s) unaccounted for')
         return '; '.join(problems) or None
+
+    def reset(self) -> None:
+        """Forget all references and prefix registrations (the
+        reference's, for a pool whose contents are gone or must not be
+        matched).  `cannibalized_total` is a lifetime counter and stays."""
+        self._free = list(range(self.n_pages - 1, 0, -1))
+        self._ref.clear()
+        self._prefix_page.clear()
+        self._page_hash.clear()
+        self._reclaimable.clear()
 
     def lookup_prefix(self, tokens: Sequence[int],
                       max_pages: Optional[int] = None) -> List[int]:

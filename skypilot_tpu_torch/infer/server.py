@@ -17,11 +17,19 @@ fails fast (the reference's transient-failure recovery and restart
 budget come later).  Serving random weights is refused unless
 `allow_random_weights` is set.
 
+With `continuous=False` (--no-continuous) the server runs the
+request-level InferenceEngine instead: each /generate call runs
+`generate` on its whole batch under a lock, with no decode loop and no
+queue-depth shed; the continuous-only flags --decode-kernel,
+--prefill-kernel and --page-size are refused at startup, as the
+reference refuses them (it accepts --prefill-chunk and ignores it).
+
 Run: python -m skypilot_tpu_torch.infer.server --model llama3-8b \
          --page-size 16 --prefill-chunk 512 --allow-random-weights
-     (add --kv-cache-dtype int8 for the int8 KV cache; --device cpu runs
-     on the CPU; the default --page-size 0 serves from a contiguous slot
-     cache with no kernel, as the reference's default does)
+     (add --kv-cache-dtype int8 for the int8 KV cache, --quantize int8
+     for int8 weights; --device cpu runs on the CPU; the default
+     --page-size 0 serves from a contiguous slot cache with no kernel,
+     as the reference's default does)
 
 With no argument for them, the default request deadline and the queue
 bound come from SKYTPU_REQUEST_DEADLINE_S (default 600 s) and
@@ -82,6 +90,8 @@ class InferenceServer:
                  decode_kernel: str = 'auto',
                  prefill_kernel: str = 'auto',
                  kv_cache_dtype: str = 'auto',
+                 quantize: Optional[str] = None,
+                 continuous: bool = True,
                  default_deadline_s: Optional[float] = None,
                  max_queue_depth: Optional[int] = None,
                  device: DeviceLike = 'cuda') -> None:
@@ -89,14 +99,36 @@ class InferenceServer:
             raise ValueError(
                 'refusing to serve randomly initialized weights: pass '
                 'params (or allow_random_weights=True for tests/dev).')
-        self.engine = engine_lib.ContinuousBatchingEngine(
-            model=model, params=params, n_slots=max_batch_size,
-            max_seq_len=max_seq_len, model_overrides=model_overrides,
-            param_dtype=param_dtype, prefill_chunk=prefill_chunk,
-            kv_read_bucket=kv_read_bucket, page_size=page_size,
-            max_pages=max_pages, decode_kernel=decode_kernel,
-            prefill_kernel=prefill_kernel, kv_cache_dtype=kv_cache_dtype,
-            device=device)
+        self.continuous = continuous
+        if continuous:
+            self.engine = engine_lib.ContinuousBatchingEngine(
+                model=model, params=params, n_slots=max_batch_size,
+                max_seq_len=max_seq_len, model_overrides=model_overrides,
+                param_dtype=param_dtype, prefill_chunk=prefill_chunk,
+                kv_read_bucket=kv_read_bucket, page_size=page_size,
+                max_pages=max_pages, decode_kernel=decode_kernel,
+                prefill_kernel=prefill_kernel,
+                kv_cache_dtype=kv_cache_dtype, quantize=quantize,
+                device=device)
+        else:
+            # As the reference, --prefill-chunk and --kv-read-bucket are
+            # accepted and unused here.
+            for flag, refused, why in (
+                    ('--decode-kernel', decode_kernel != 'auto',
+                     'paged decode attention is slot-mode only'),
+                    ('--prefill-kernel', prefill_kernel != 'auto',
+                     'chunked prefill is a slot-engine path'),
+                    ('--page-size', page_size,
+                     'the paged KV cache is slot-mode only')):
+                if refused:
+                    raise ValueError(f'{flag} requires continuous batching '
+                                     f'({why}); drop --no-continuous.')
+            self.engine = engine_lib.InferenceEngine(
+                model=model, params=params, max_batch_size=max_batch_size,
+                max_seq_len=max_seq_len, model_overrides=model_overrides,
+                param_dtype=param_dtype, quantize=quantize,
+                kv_cache_dtype=kv_cache_dtype, device=device)
+        self._lock = threading.Lock()
         self.model_name = model
         # An argument beats the env knob, which beats the default.
         self.default_deadline_s = (
@@ -159,6 +191,9 @@ class InferenceServer:
             max_new_tokens=int(payload.get('max_new_tokens', 64)),
             seed=(int(payload['seed'])
                   if payload.get('seed') is not None else None))
+        if not self.continuous:
+            with self._lock:
+                return {'tokens': self.engine.generate(prompts, sampling)}
         depth = self.engine.queue_depth
         if depth + len(prompts) > self.max_queue_depth:
             raise _Shed(f'queue full ({depth} queued, limit '
@@ -236,7 +271,7 @@ class InferenceServer:
                     self._reply(500, {'error': str(e)})
 
         self._server = _HTTPServer((self._host, self._port), Handler)
-        if self._decode_thread is None:
+        if self.continuous and self._decode_thread is None:
             self._running = True
             self._decode_thread = threading.Thread(
                 target=self._decode_loop, daemon=True,
@@ -273,6 +308,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--host', default='0.0.0.0')
     parser.add_argument('--max-batch-size', type=int, default=4)
     parser.add_argument('--max-seq-len', type=int, default=None)
+    parser.add_argument('--no-continuous', dest='continuous',
+                        action='store_false', default=True,
+                        help='Request-level batching (InferenceEngine) '
+                             'instead of continuous (slot-based) '
+                             'batching.')
     parser.add_argument('--prefill-chunk', type=int, default=0,
                         help='Chunked prefill: this many prompt tokens per '
                              'tick (0 = whole prompt at admission).')
@@ -294,6 +334,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'int8' = int8 K/V with f32 per-(kv head, "
                              "position) scales (half a bf16 cache's "
                              "bytes); 'auto' = the model dtype.")
+    parser.add_argument('--quantize', default=None, choices=['int8'],
+                        help='Weight-only int8: int8 matmul weights and '
+                             'embedding with f32 scales, dequantized '
+                             'before each use (half the weight bytes); '
+                             'composes with --kv-cache-dtype.')
     parser.add_argument('--model-overrides', default=None,
                         help='JSON dict of model-config overrides.')
     parser.add_argument('--allow-random-weights', action='store_true',
@@ -322,7 +367,8 @@ def main() -> None:
         allow_random_weights=args.allow_random_weights,
         decode_kernel=args.decode_kernel,
         prefill_kernel=args.prefill_kernel,
-        kv_cache_dtype=args.kv_cache_dtype, device=args.device)
+        kv_cache_dtype=args.kv_cache_dtype, quantize=args.quantize,
+        continuous=args.continuous, device=args.device)
     logger.info(f'engine ready in {time.perf_counter() - t0:.1f}s')
     server.serve_forever()
 

@@ -24,10 +24,15 @@ holds int8 K/V rows with f32 absmax scales per (kv head, position)
 beside them, quantized on write (`ops/grouped_attention.py`
 `quantize_int8_rows`); the kernels read them through their int8
 branches, 'xla' through the reference's `quantized_grouped_attention`.
-The
-training forward (`Llama.train_forward`) takes no cache; it reruns each
-block in the backward pass (`remat`, through torch.utils.checkpoint)
-as the reference's `nothing_saveable` policy does.
+With `quantize='int8'` (weight-only int8 serving) every matmul weight
+and the token embedding are int8 with f32 per-output-row scales (the
+embedding: one per model column), as the reference's
+`quantize_params_int8`; each is dequantized to `param_dtype` just before
+its use, one weight at a time (`dequantize_int8`, the reference's
+`maybe_dequantize_params`).  The training forward (`Llama.train_forward`) takes no cache; it reruns
+each block in the backward pass (`remat`, through
+torch.utils.checkpoint) as the reference's `nothing_saveable` policy
+does.
 """
 from __future__ import annotations
 
@@ -82,6 +87,9 @@ class LlamaConfig:
     # KV cache storage: 'auto' = `dtype`, 'int8' = int8 rows with f32
     # per-(kv head, position) absmax scales in sibling tensors.
     kv_cache_dtype: str = 'auto'
+    # Weight-only int8 serving: None = float weights, 'int8' = int8
+    # matmul weights and embedding with f32 scales beside them.
+    quantize: Optional[str] = None
     # Training forward: rerun each block in the backward pass ('nothing'
     # is saved but the block's input, the reference's default policy);
     # attention through the flash kernels or the plain `mha_reference`.
@@ -93,6 +101,9 @@ class LlamaConfig:
         if self.kv_cache_dtype not in ('auto', 'int8'):
             raise ValueError(f"kv_cache_dtype must be 'auto' or 'int8', "
                              f'got {self.kv_cache_dtype!r}')
+        if self.quantize not in (None, 'int8'):
+            raise ValueError(f"quantize must be None or 'int8', got "
+                             f'{self.quantize!r}.')
         object.__setattr__(self, 'dtype', as_dtype(self.dtype))
         object.__setattr__(self, 'param_dtype', as_dtype(self.param_dtype))
 
@@ -532,11 +543,67 @@ def _train_attention(cfg: LlamaConfig, *, kernel: str):
 
 
 # ---------------------------------------------------------------------------
+# weight-only int8
+# ---------------------------------------------------------------------------
+def quantize_int8_weight(x: torch.Tensor, axis: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 absmax quantization of one weight over `axis`
+    (its input axis; the vocab axis of the embedding): (q int8, scale
+    f32, keepdim), x ~= q * scale.  Bit for bit the reference's
+    `quantize_params_int8` on the same values: absmax / 127 in x's own
+    dtype, floored at 1e-8 in that dtype, then f32; q = round(x / scale)
+    in f32 (half to even), clipped to +-127."""
+    scale = x.abs().amax(dim=axis, keepdim=True) / 127.0
+    scale = torch.maximum(scale, scale.new_tensor(1e-8)).float()
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quant_axis(name: str) -> int:
+    """The axis a weight of the state_dict is scaled over: the vocab
+    axis of `tok_embed` [V, D], the input axis of an [out, in] matmul
+    weight."""
+    return 0 if name == 'tok_embed' else 1
+
+
+def dequantize_int8(q8: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """q8 * scale in f32, rounded to `dtype` (the reference's
+    `maybe_dequantize_params` for one weight), in one elementwise pass
+    that reads int8 and writes `dtype`."""
+    return torch.mul(q8, scale, out=torch.empty(q8.shape, dtype=dtype,
+                                                 device=q8.device))
+
+
+# ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def _weight(module: nn.Module, name: str, shape, dtype, cfg: 'LlamaConfig',
+            device, scale_shape=None) -> None:
+    """Register a matmul weight (or the embedding) `name` of `shape`:
+    float `dtype`, or with cfg.quantize int8 beside an f32 `name_scale`
+    of `scale_shape` (default [out, 1])."""
+    if cfg.quantize is None:
+        setattr(module, name, _param(shape, dtype, device))
+        return
+    setattr(module, name, _param(shape, torch.int8, device))
+    setattr(module, name + '_scale',
+            _param(scale_shape or (shape[0], 1), torch.float32, device))
+
+
+def _use(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Weight `name` of `module` in `dtype`: a float weight cast, an int8
+    one dequantized to cfg.param_dtype first (one weight at a time)."""
+    w = getattr(module, name)
+    if w.dtype == torch.int8:
+        w = dequantize_int8(w, getattr(module, name + '_scale'),
+                            module.cfg.param_dtype)
+    return w.to(dtype)
 
 
 class RMSNorm(nn.Module):
@@ -583,11 +650,9 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
-        pd = cfg.param_dtype
-        self.q_proj = _param((h * hd, d), pd, device)
-        self.k_proj = _param((kv * hd, d), pd, device)
-        self.v_proj = _param((kv * hd, d), pd, device)
-        self.o_proj = _param((d, h * hd), pd, device)
+        for name, shape in (('q_proj', (h * hd, d)), ('k_proj', (kv * hd, d)),
+                            ('v_proj', (kv * hd, d)), ('o_proj', (d, h * hd))):
+            _weight(self, name, shape, cfg.param_dtype, cfg, device)
 
     def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor,
                                                     torch.Tensor],
@@ -597,14 +662,17 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         x = x.to(dt)
-        q = F.linear(x, self.q_proj.to(dt)).view(b, s, h, hd).transpose(1, 2)
-        k = F.linear(x, self.k_proj.to(dt)).view(b, s, kv, hd).transpose(1, 2)
-        v = F.linear(x, self.v_proj.to(dt)).view(b, s, kv, hd).transpose(1, 2)
+        q = F.linear(x, _use(self, 'q_proj', dt)).view(b, s, h, hd
+                                                       ).transpose(1, 2)
+        k = F.linear(x, _use(self, 'k_proj', dt)).view(b, s, kv, hd
+                                                       ).transpose(1, 2)
+        v = F.linear(x, _use(self, 'v_proj', dt)).view(b, s, kv, hd
+                                                       ).transpose(1, 2)
         q = rotate(q, *rope).contiguous()
         k = rotate(k, *rope)
         out = attend(q, k, v)                       # [B, S, H, hd]
         return F.linear(out.reshape(b, s, h * hd).to(dt),
-                        self.o_proj.to(dt))
+                        _use(self, 'o_proj', dt))
 
 
 class MLP(nn.Module):
@@ -612,17 +680,17 @@ class MLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
         self.cfg = cfg
-        pd = cfg.param_dtype
-        self.gate_proj = _param((cfg.ffn_dim, cfg.dim), pd, device)
-        self.up_proj = _param((cfg.ffn_dim, cfg.dim), pd, device)
-        self.down_proj = _param((cfg.dim, cfg.ffn_dim), pd, device)
+        f, d = cfg.ffn_dim, cfg.dim
+        for name, shape in (('gate_proj', (f, d)), ('up_proj', (f, d)),
+                            ('down_proj', (d, f))):
+            _weight(self, name, shape, cfg.param_dtype, cfg, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
         x = x.to(dt)
-        gate = F.linear(x, self.gate_proj.to(dt))
-        up = F.linear(x, self.up_proj.to(dt))
-        return F.linear(F.silu(gate) * up, self.down_proj.to(dt))
+        gate = F.linear(x, _use(self, 'gate_proj', dt))
+        up = F.linear(x, _use(self, 'up_proj', dt))
+        return F.linear(F.silu(gate) * up, _use(self, 'down_proj', dt))
 
 
 class Block(nn.Module):
@@ -652,32 +720,47 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
         self.cfg = cfg
-        self.tok_embed = _param((cfg.vocab_size, cfg.dim), cfg.param_dtype,
-                                device)
+        _weight(self, 'tok_embed', (cfg.vocab_size, cfg.dim),
+                cfg.param_dtype, cfg, device, scale_shape=(1, cfg.dim))
         self.layers = nn.ModuleList(Block(cfg, device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                   cfg.param_dtype, device)
         # The head computes in f32 (reference: DenseGeneral dtype=f32),
-        # so its weight is kept in f32 rather than cast every step.
-        self.lm_head = _param((cfg.vocab_size, cfg.dim), torch.float32,
-                              device)
+        # so a float head's weight is kept in f32 rather than cast every
+        # step.
+        _weight(self, 'lm_head', (cfg.vocab_size, cfg.dim), torch.float32,
+                cfg, device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The reference's initializers: normal(0.02) kernels, o_proj
         scaled by 1/sqrt(2 * n_layers), normal(1.0) embeddings, unit
-        norms."""
+        norms.  An int8 model draws each weight as the float model does
+        (same order, shapes and dtypes, so the same generator gives the
+        same values) and stores its quantization of the weight cast to
+        param_dtype, one weight at a time."""
         cfg = self.cfg
         o_std = 0.02 / math.sqrt(2 * cfg.n_layers)
-        for name, p in self.named_parameters():
+        params = dict(self.named_parameters())
+        for name, p in params.items():
+            if name.endswith('_scale'):
+                continue
             if name.endswith('.weight'):
                 p.fill_(1.0)
-            elif name == 'tok_embed':
-                p.normal_(0.0, 1.0, generator=generator)
-            else:
-                std = o_std if name.endswith('o_proj') else 0.02
-                p.normal_(0.0, std, generator=generator)
+                continue
+            w = p
+            if p.dtype == torch.int8:
+                w = torch.empty(p.shape, device=p.device, dtype=(
+                    torch.float32 if name == 'lm_head' else cfg.param_dtype))
+            std = (1.0 if name == 'tok_embed'
+                   else o_std if name.endswith('o_proj') else 0.02)
+            w.normal_(0.0, std, generator=generator)
+            if p.dtype == torch.int8:
+                q, scale = quantize_int8_weight(w.to(cfg.param_dtype),
+                                                quant_axis(name))
+                p.copy_(q)
+                params[name + '_scale'].copy_(scale)
 
     def hidden(self, tokens: torch.Tensor, positions: torch.Tensor,
                cache: Union[PrefillCache, PagedCache, SlotCache],
@@ -689,7 +772,7 @@ class Llama(nn.Module):
         cfg = self.cfg
         kernel = resolve_kernel(kernel, tokens.device,
                                 paged=cfg.kv_page_size > 0)
-        x = F.embedding(tokens, self.tok_embed).to(cfg.dtype)
+        x = self.embed(tokens)
         rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         # Everything the layers share is computed once per forward.
         if isinstance(cache, PagedCache):
@@ -738,7 +821,7 @@ class Llama(nn.Module):
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x = F.embedding(tokens, self.tok_embed).to(cfg.dtype)
+        x = self.embed(tokens)
         rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
@@ -750,9 +833,19 @@ class Llama(nn.Module):
         x = self.final_norm(x)
         return x if return_hidden else self.head(x)
 
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings in cfg.dtype; an int8 table's rows are
+        gathered first, then dequantized (elementwise, so exact)."""
+        x = F.embedding(tokens, self.tok_embed)
+        if x.dtype == torch.int8:
+            x = dequantize_int8(x, self.tok_embed_scale, self.cfg.param_dtype)
+        return x.to(self.cfg.dtype)
+
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits from final-normed hidden states."""
-        return F.linear(x.float(), self.lm_head)
+        """f32 logits from final-normed hidden states (an int8 head is
+        dequantized to param_dtype, then widened: the reference's
+        DenseGeneral(dtype=f32) over its dequantized kernel)."""
+        return F.linear(x.float(), _use(self, 'lm_head', torch.float32))
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 cache: Union[PrefillCache, PagedCache, SlotCache],

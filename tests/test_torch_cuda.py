@@ -15,6 +15,15 @@ see nothing, S 4 masks under a window, f32/bf16/f16 q, chunks of 1 and
 3 pages, and calls back to back (its merge counters must be back at 0).
 The dq pass: its 128-row blocks, 64-column ring and the tiles a consumer
 skips or masks.  f16 outputs hold to the bf16 bounds with u = 2^-11.
+Prefix sharing and int8 weights on the serving path: the paged decode
+kernel over tables whose leading pages are shared by every row (float
+and int8 pools, within the bounds below); hydrate then insert with
+copy_start_page (float and int8 pools: the shared pages bit-unchanged,
+the others holding the prefill cache's rows); and a tiny bf16 model with
+int8 weights served on the card against the same model on the CPU: the
+dequantized weights bit for bit, the prefill and first decode step
+logits within 6% of max |logit| (chip_smoke.py's serving bound: the
+kernels against the plain versions, bf16 roundings in other orders).
 
 Tolerances, per element.  f32 (paged decode only; the prefill kernel
 takes 16-bit types): 1e-4 absolute against the plain version at f32.
@@ -47,6 +56,8 @@ import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu_torch.infer import engine as teng
+from skypilot_tpu_torch.models import llama as tllama
 from skypilot_tpu_torch.ops import flash_attention as fa
 from skypilot_tpu_torch.ops import grouped_attention as ga
 from skypilot_tpu_torch.ops import paged_attention as pa
@@ -647,3 +658,127 @@ def test_flash_wrappers_raise_instead_of_falling_back(dev):
     lse = torch.zeros(1, 4, 64, device=dev)
     with pytest.raises(ValueError, match='float32'):
         fa.flash_bwd_dq(q, k, v, do, lse.bfloat16(), lse, **kw)
+
+
+# -- prefix sharing and int8 weights on the serving path ---------------------
+_TINY = dict(n_layers=2, n_heads=4, n_kv_heads=2, dim=256, ffn_dim=512,
+             vocab_size=512, max_seq_len=256)
+SERVE_LOGITS_REL_TOL = 0.06
+
+
+@pytest.mark.parametrize('quant', [False, True], ids=['float', 'int8'])
+def test_paged_decode_over_shared_leading_pages(dev, quant):
+    b, h, kvh, d, ps, n_shared = 4, 8, 2, 128, 16, 3
+    ctxs = [100, 49, 64, 250]
+    g = torch.Generator().manual_seed(7)
+    n_read = -(-(max(ctxs) + 1) // ps)
+    n_pages = 1 + n_shared + b * n_read
+    pk = torch.randn(n_pages, kvh, ps, d, generator=g)
+    pv = torch.randn(n_pages, kvh, ps, d, generator=g)
+    pk[0] = pv[0] = 1e4          # the null page: garbage the mask must hide
+    fresh = (torch.randperm(n_pages - 1 - n_shared, generator=g)
+             + 1 + n_shared).tolist()
+    table = torch.zeros(b, n_read, dtype=torch.int32)
+    mask = torch.zeros(b, 1, 1, n_read * ps, dtype=torch.bool)
+    for i, c in enumerate(ctxs):
+        need = -(-c // ps)
+        table[i, :n_shared] = torch.arange(1, 1 + n_shared)
+        table[i, n_shared:need] = torch.tensor(fresh[:need - n_shared])
+        del fresh[:need - n_shared]
+        mask[i, 0, 0, :c] = True
+    q = torch.randn(b, h, 1, d, generator=g)
+    scales = {}
+    if quant:
+        pk, ks = _quantized(pk, True)
+        pv, vs = _quantized(pv, True)
+        scales = dict(key_scale=ks.to(dev), value_scale=vs.to(dev))
+    else:
+        pk, pv = pk.bfloat16(), pv.bfloat16()
+    args = (q.bfloat16().to(dev), pk.to(dev), pv.to(dev), table.to(dev),
+            mask.to(dev))
+    kw = dict(scale=d ** -0.5, **scales)
+    before = pa.launches_int8 if quant else pa.launches
+    got = pa.paged_decode_attention(*args, probs_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert (pa.launches_int8 if quant else pa.launches) == before + 1
+    _assert_within_rounding(got, pa.paged_decode_attention_plain, args, kw,
+                            probs_rounded=False)
+
+
+@pytest.mark.parametrize('quant', [False, True], ids=['float', 'int8'])
+def test_hydrate_then_insert_leaves_shared_pages(dev, quant):
+    ps, n_shared = 16, 3
+    cfg = tllama.get_config(
+        'llama-tiny', **_TINY, dtype='bfloat16', kv_page_size=ps,
+        kv_n_pages=40, kv_cache_dtype='int8' if quant else 'auto')
+    cache = tllama.PagedCache.zeros(cfg, 2, dev)
+    cache1 = tllama.PrefillCache.zeros(cfg, 1, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def fill(t):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=dev, dtype=torch.int8))
+        else:
+            t.copy_(torch.rand(t.shape, generator=g, device=dev) + 0.5)
+
+    pairs = teng._kv_pairs(cache, cache1)  # pylint: disable=protected-access
+    for pool, _ in pairs:
+        fill(pool)
+    old = [pool.clone() for pool, _ in pairs]
+    table_row = np.zeros((cfg.max_seq_len // ps,), np.int32)
+    pages = [7, 3, 12, 20, 21, 22]
+    table_row[:len(pages)] = pages
+    n = n_shared * ps
+    teng.hydrate(cache1, cache, table_row, n_shared, n)
+    assert cache1.cursor == n
+    for pool, dst in pairs:
+        L, _, kvh, _, d = dst.shape
+        want = pool[:, pages[:n_shared]].transpose(1, 2).reshape(L, kvh, n,
+                                                                  d)
+        assert torch.equal(dst[:, 0, :, :n], want)
+        # The suffix prefill writes past the prefix; rows below it change
+        # too here, so that a write of the shared pages would show.
+        fill(dst)
+    teng.paged_insert(cache, cache1, table_row, 1, copy_start_page=n_shared)
+    torch.cuda.synchronize()
+    for (pool, dst), before in zip(pairs, old):
+        L, _, kvh, s, d = dst.shape
+        rows = dst[:, 0].reshape(L, kvh, s // ps, ps, d).transpose(1, 2)
+        assert torch.equal(pool[:, pages[:n_shared]],
+                           before[:, pages[:n_shared]])
+        assert torch.equal(pool[:, pages[n_shared:]],
+                           rows[:, n_shared:len(pages)].to(pool.dtype))
+        untouched = [p for p in range(cfg.kv_n_pages) if p not in pages]
+        assert torch.equal(pool[:, untouched], before[:, untouched])
+    assert cache.table[1].tolist() == table_row.tolist()
+
+
+def test_int8_weight_forward_matches_cpu(dev):
+    kw = dict(model='llama-tiny', model_overrides=_TINY, n_slots=2,
+              page_size=16, prefill_chunk=64, quantize='int8',
+              param_dtype=torch.bfloat16)
+    cpu = teng.ContinuousBatchingEngine(**kw, device='cpu')
+    sd = cpu.model.state_dict()
+    assert sd['layers.0.mlp.down_proj'].dtype == torch.int8
+    card = teng.ContinuousBatchingEngine(**kw, params=sd, device=dev)
+    assert card.decode_kernel == card.prefill_kernel == 'fused'
+    for key, w in card.model.state_dict().items():
+        assert torch.equal(w.cpu(), sd[key]), key
+    q8, scale = sd['lm_head'], sd['lm_head_scale']
+    assert torch.equal(
+        tllama.dequantize_int8(q8.to(dev), scale.to(dev),
+                               torch.bfloat16).cpu(),
+        tllama.dequantize_int8(q8, scale, torch.bfloat16))
+    prompt = [(7 * i + 3) % 512 for i in range(150)]
+    got = []
+    for eng in (cpu, card):
+        eng.submit(prompt, teng.SamplingConfig(max_new_tokens=4))
+        while all(s is None for s in eng._slots):  # pylint: disable=protected-access
+            eng._schedule_front()  # pylint: disable=protected-access
+        got.append([eng._last[0].float().cpu(),  # pylint: disable=protected-access
+                    eng.decode_logits(eng.decode_kernel)[0].float().cpu()])
+    for want, logits in zip(*got):
+        assert torch.isfinite(logits).all()
+        gap = (logits - want).abs().max() / want.abs().max()
+        assert gap <= SERVE_LOGITS_REL_TOL, gap
