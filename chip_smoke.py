@@ -24,7 +24,9 @@ Phases, any failure exits non-zero:
                1024-position window (chunks that see nothing), pages of 8
                and of 32, d 64, f16 and f32 q, each called twice in a row
                on different inputs (a merge counter left non-zero would
-               show).  Prefill: the 512-token chunks of a
+               show); and, checked and timed, at the serving path's
+               multi-query widths: S 5 (a speculative verify) and S 64 (a
+               mixed step) over the timed case's contexts (DECODE_S).  Prefill: the 512-token chunks of a
                3000-token prompt at cursor base 0, 1536 and 2560 (the
                last chunk, where kv_mask cuts into the chunk), timed;
                then, checked only, the cases the prefill kernel's tiling
@@ -107,6 +109,29 @@ Phases, any failure exits non-zero:
                weights: the serve_unpaged prompts in one /generate batch of
                4, no kernel launched, greedy tokens equal to
                serve_unpaged's.
+     serve_spec - serve's server with --spec-k 4: 8 greedy requests over
+               templated prompts with n-gram self-drafting, then with a
+               llama3.2-1b draft, and, when neither accepted a token, with a
+               draft of the target's config and seed; per mode the proposed,
+               accepted and committed tokens, kernel 4's launches by S
+               (S 5 must launch, kernel 5 too), the token agreement with
+               plain bf16 decode; /health?verbose=1's speculation block.
+               The first verify forward's logits (all k + 1 positions),
+               kernels vs plain, within LOGITS_REL_TOL (bf16 cache) and
+               INT8_LOGITS_REL_TOL (int8 cache, the quant branch at S 5).
+     serve_mixed - serve's server with --prefill-mix-budget 64: 8 decoding
+               requests, then 2 prompts of 1000 tokens once all 8 are
+               live; kernel 4 must launch at S 64 and kernel 5 never.
+               Reading: the decode rows' inter-token ms while two long
+               prompts prefill, mixed against dedicated ticks.  One mixed
+               step's logits (decode rows, and a prompt row at its last
+               token), kernels vs plain, bf16 and int8 caches (limits as
+               serve_spec's).
+     invariants - at serve_unpaged's size (f32, 4 layers; kernel 4 at f32,
+               prefill 'xla'): speculation with a draft of the target's
+               config and seed, and mixed batches, must give plain decode's
+               greedy streams token for token (where not, the first token
+               that differs and the top-2 logit margin there are printed).
   5. train   - `python -m skypilot_tpu_torch.train` (its `main`) on
                llama3-8b at its published widths, depth cut to 4 layers,
                batch 2 x seq 4096, 5 steps (bf16 compute, f32 params and
@@ -123,7 +148,9 @@ Phases, any failure exits non-zero:
   6. summary - one JSON line {"kernels": [...]} with each kernel's route,
                source, the TPU kernel it replaces, its launches on its
                path (serve phase, serve_int8 phase, train phase) and in
-               every phase ("launches_by_phase"), error, times and bound;
+               every phase ("launches_by_phase"; kernel 4 also by S in
+               serve_spec and serve_mixed, "launches_by_s"), error, times
+               and bound (kernel 4's S 5 and S 64 cases in `cases`);
                the int8 entries carry "branch": "quant".
                The prefill entry's times and bound are the base-1536
                chunk's, its max_abs_err the worst over the three chunks
@@ -426,10 +453,63 @@ def _kernel_decode(dev, rng, quant):
     log(f'{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
         f'{lib} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})')
     del q, pk, pv, table, mask, scales, kg, vg, got
-    cases = _decode_edges(dev, name, quant)
+    cases = [_kernel_decode_multi(dev, name, quant, s) for s in DECODE_S]
+    cases += _decode_edges(dev, name, quant)
     return dict(max_abs_err=max([err] + [c['max_abs_err'] for c in cases]),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms, cases=cases)
+
+
+# Kernel 4 at the query widths of speculation (the pending token and
+# k = 4 proposals) and of mixed batches (a 64-token budget), timed and
+# checked: batch 8, the decode case's contexts (100-4000), query j of a
+# row seeing its first context + j positions.
+DECODE_S = (5, 64)
+
+
+def _kernel_decode_multi(dev, name: str, quant: bool, s: int) -> dict:
+    from skypilot_tpu_torch.ops import grouped_attention as ga
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ctxs = np.linspace(100, 4000, 8).astype(int)
+    np.random.RandomState(0).shuffle(ctxs)
+    args, scales = _decode_edge_inputs(dev, 200 + s, tuple(ctxs), s, D, PS,
+                                       DTYPE, None, quant)
+    q, pk, pv, table, mask = args
+    kw = dict(scale=D ** -0.5, probs_dtype=DTYPE, **scales)
+    got = pa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    err = check_kernel(f'{name} S {s} (contexts {sorted(ctxs.tolist())})',
+                       got, pa.paged_decode_attention_plain, tuple(args),
+                       dict(scale=D ** -0.5, **scales), probs_rounded=False)
+    kg, vg = ga.gather_pages(pk, table), ga.gather_pages(pv, table)
+    if quant:   # dequantized beforehand, untimed
+        kg = _dequantized(kg, ga.gather_pages(scales['key_scale'], table))
+        vg = _dequantized(vg, ga.gather_pages(scales['value_scale'], table))
+    ms = time_ms(lambda: pa.paged_decode_attention(*args, **kw))
+    plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(*args, **kw))
+    lib_ms = time_ms(lambda: sdpa(q, kg, vg, attn_mask=mask,
+                                  scale=D ** -0.5, enable_gqa=True))
+    bms, by = bound(*decode_multi_work(ctxs, s, table, mask, quant))
+    log(f'{name} S {s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa '
+        f'{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), kernel at '
+        f'{bms / ms:.3f} of its bound')
+    return dict(case=f's{s}', max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def decode_multi_work(ctxs, s: int, table, mask, quant: bool):
+    """(bytes, flops) of kernel 4 at S queries a row (H 32, kvh 8, d 128):
+    q and out bf16 once, each row's K/V rows once (its context + S - 1
+    positions, int8 with an f32 scale or bf16), the table and the mask;
+    4 d flops per visible (query, position) pair and query head."""
+    b = table.shape[0]
+    kv_row = 2 * (D + 4) if quant else 2 * D * 2
+    live = int(np.sum(ctxs)) + b * (s - 1)
+    pairs = int(np.sum(ctxs)) * s + b * s * (s - 1) // 2
+    nbytes = (2 * b * H * s * D * 2 + live * KVH * kv_row
+              + table.numel() * 4 + mask.numel())
+    return nbytes, 4.0 * pairs * H * D
 
 
 # Decode cases the kernel's split page walk can get wrong, checked but not
@@ -823,27 +903,28 @@ SERVE_KERNELS = ('paged_decode', 'ragged_prefill')
 SERVE_KERNELS_INT8 = ('paged_decode_int8', 'ragged_prefill_int8')
 
 
-def _start_server(dev, kv_cache_dtype: str, quantize=None):
+def _start_server(dev, kv_cache_dtype: str, quantize=None, **flags):
     """The port's InferenceServer on llama3-8b at full width and depth
     (random bf16 weights from the engine's seed 0, so every call serves
-    the same weights; with quantize='int8' their int8 quantization),
-    answering on a free localhost port.  Returns (server, its HTTP
-    thread, base url)."""
+    the same weights; with quantize='int8' their int8 quantization), with
+    `flags` (speculation, mixed batches), answering on a free localhost
+    port.  Returns (server, its HTTP thread, base url)."""
     from skypilot_tpu_torch.infer import server as server_lib
     t0 = time.perf_counter()
     srv = server_lib.InferenceServer(
         model='llama3-8b', port=0, host='127.0.0.1', max_batch_size=8,
         max_seq_len=4096, prefill_chunk=512, page_size=16,
         allow_random_weights=True, kv_cache_dtype=kv_cache_dtype,
-        quantize=quantize, device=dev)
+        quantize=quantize, device=dev, **flags)
     eng = srv.engine
     cfg = eng.config
     log(f'serve[{kv_cache_dtype}]: llama3-8b dim {cfg.dim} layers '
         f'{cfg.n_layers} heads {cfg.n_heads}/{cfg.n_kv_heads} ffn '
         f'{cfg.ffn_dim} vocab {cfg.vocab_size} {cfg.dtype}, weights '
-        f'{quantize or cfg.param_dtype}, KV cache {eng.kv_cache_dtype}; '
-        f'kernels decode={eng.decode_kernel} prefill={eng.prefill_kernel}; '
-        f'ready in {time.perf_counter() - t0:.1f}s, '
+        f'{quantize or cfg.param_dtype}, KV cache {eng.kv_cache_dtype}, '
+        f'{flags}; kernels decode={eng.decode_kernel} '
+        f'prefill={eng.prefill_kernel}; ready in '
+        f'{time.perf_counter() - t0:.1f}s, '
         f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
     if (eng.decode_kernel, eng.prefill_kernel) != ('fused', 'fused'):
         raise AssertionError('serving path does not run the CUDA kernels')
@@ -1471,6 +1552,453 @@ def phase_serve_static(dev, unpaged: dict) -> dict:
     return dict(launches=launches)
 
 
+# Speculative decoding (serve_spec): k = 4 proposals a step, 8 greedy
+# requests of SPEC_NEW tokens over templated prompts (each a 48-token
+# span repeated with 8-token fillers between, TEMPLATE_REPS times over,
+# and cut off halfway into the span once more).  A random target's first
+# token is as random as its weights, so n-gram would match nothing at
+# the first verify: `echo_prompts` sets the first filler token to the
+# first greedy token, so that the suffix the first verify looks up stands
+# in the prompt and real proposals reach the card;
+# the draft model is Meta's 1B (llama3.2-1b: 16 layers, head_dim 64, the
+# same vocabulary).  Mixed batches (serve_mixed): a 64-token budget;
+# MIX_DECODE requests decode (two of them end after MIX_SHORT_NEW tokens,
+# freeing their slots) while MIX_LONG prompts of MIX_LONG_LEN tokens
+# arrive.  The invariants run at serve_unpaged's size (f32, 4 layers),
+# kernel 4 reading (it takes f32) and prefill 'xla' (kernel 5 takes no
+# f32): the spec and mixed greedy streams must equal the plain stream.
+SPEC_K = 4
+SPEC_NEW = 32
+TEMPLATE_SPAN, TEMPLATE_FILL = 48, 8
+TEMPLATE_REPS = (6, 8, 10, 12, 14, 16, 20, 24)
+ECHO_ROUNDS = 4
+SPEC_DRAFT = 'llama3.2-1b'
+MIX_BUDGET = 64
+MIX_DECODE, MIX_SHORT_NEW, MIX_LONG_NEW = 8, 8, 96
+MIX_LONG, MIX_LONG_LEN = 2, 1000
+INV_NEW = 24
+
+
+def template_prompts(vocab: int, seed: int) -> list:
+    """Templated traffic: each prompt a span repeated with fillers, ending
+    halfway into the span."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for reps in TEMPLATE_REPS:
+        span = rng.randint(0, vocab, TEMPLATE_SPAN).tolist()
+        p = []
+        for _ in range(reps):
+            p += span + rng.randint(0, vocab, TEMPLATE_FILL).tolist()
+        out.append(p + span[:TEMPLATE_SPAN // 2])
+    return out
+
+
+def echo_prompts(plain, prompts: list) -> tuple:
+    """`prompts` with each one's first filler token set to its first
+    greedy token on `plain` (the served weights), again while that changes
+    the first token, at most ECHO_ROUNDS times; (prompts, whether each
+    one's first token stands in it)."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    one = engine_lib.SamplingConfig(max_new_tokens=1)
+    out = [list(p) for p in prompts]
+    for rnd in range(ECHO_ROUNDS + 1):
+        first = [t[0] for t in plain.generate(out, one)]
+        echo = [t in p for t, p in zip(first, out)]
+        if all(echo) or rnd == ECHO_ROUNDS:
+            return out, echo
+        for p, t, e in zip(out, first, echo):
+            if not e:
+                p[TEMPLATE_SPAN] = t
+
+
+def _free() -> None:
+    """Hand the memory of the objects just dropped back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _by_s() -> dict:
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    return {'float': dict(sorted(pa.launches_by_s.items())),
+            'int8': dict(sorted(pa.launches_int8_by_s.items()))}
+
+
+def _live(eng, prompts, new: int) -> list:
+    """Submit `prompts` and drive the engine until each is live (admission
+    and prefill ticks; whole steps where prompts ride decode steps);
+    returns the request ids."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    rids = [eng.submit(p, engine_lib.SamplingConfig(max_new_tokens=new))
+            for p in prompts]
+    tick = eng.step if eng.prefill_mix_budget else eng._schedule_front  # pylint: disable=protected-access
+    for _ in range(10_000):
+        if sum(s is not None for s in eng._slots) == len(prompts):  # pylint: disable=protected-access
+            return rids
+        tick()
+    raise AssertionError('requests did not go live together')
+
+
+def _drop(eng, rids) -> None:
+    for r in rids:
+        eng.cancel(r)
+    eng.step()
+    if not eng.is_idle() or eng.allocator_leak_report() is not None:
+        raise AssertionError(f'pages leaked: {eng.allocator_leak_report()}')
+
+
+def _logit_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (inf where got is not finite)."""
+    if not bool(torch.isfinite(got).all()):
+        return float('inf')
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def verify_check(eng, prompts, limit: float, tag: str) -> float:
+    """The first verify forward of `prompts` (logits at all k + 1
+    positions) through the kernels and through their plain versions over
+    the same cache; the worst row's gap must be within `limit`.  An
+    n-gram engine must propose at least one token there."""
+    from skypilot_tpu_torch.infer import speculative as spec_lib
+    rids = _live(eng, prompts, SPEC_NEW)
+    rows = [i for i, s in enumerate(eng._slots) if s is not None]  # pylint: disable=protected-access
+    props = [len(spec_lib.ngram_propose(
+        eng._slots[i].prompt_ids + eng._slots[i].outputs, SPEC_K))  # pylint: disable=protected-access
+        for i in rows]
+    if not sum(props):
+        raise AssertionError(f'{tag}: the first verify proposes nothing')
+    fused = eng.verify_logits('fused')
+    plain = eng.verify_logits('plain')
+    gaps = [_logit_gap(fused[i], plain[i]) for i in rows]
+    gap = max(gaps)
+    log(f'{tag}: first verify forward (S {SPEC_K + 1}, {len(rows)} rows, '
+        f'n-gram proposals by row {props}), kernels vs plain: max abs diff over max |logit| {gap:.5f} (limit '
+        f'{limit}); by row {[round(g, 5) for g in gaps]}')
+    _drop(eng, rids)
+    if not gap <= limit:
+        raise AssertionError(f'{tag}: verify logits disagree with the plain '
+                             'path')
+    return gap
+
+
+def mixed_check(eng, vocab: int, limit: float, tag: str) -> float:
+    """One mixed step with 6 live decode rows and a prompt whose last
+    chunk rides it: the decode rows' logits and the prompt row's at its
+    last token, through the kernels and through their plain versions;
+    within `limit`."""
+    rng = np.random.RandomState(12)
+    # Enough new tokens that the first row still decodes when the last of
+    # the six (4340 prompt tokens, 64 a step) goes live.
+    rids = _live(eng, [rng.randint(0, vocab, n).tolist()
+                       for n in (40, 100, 300, 700, 1200, 2000)], 256)
+    rids.append(eng.submit(rng.randint(0, vocab, 4 * MIX_BUDGET + 37)
+                           .tolist()))
+    eng.step()
+    pend = eng._prefills[0]  # pylint: disable=protected-access
+    while pend.true_len - pend.done > MIX_BUDGET:
+        eng.step()
+    fused, rows = eng.mixed_logits('fused')
+    plain, _ = eng.mixed_logits('plain')
+    gaps = [_logit_gap(fused[i], plain[i]) for i in rows]
+    gap = max(gaps)
+    log(f'{tag}: one mixed step (S {MIX_BUDGET}, {len(rows) - 1} decode '
+        f'rows, the prompt row at its last token), kernels vs plain: max '
+        f'abs diff over max |logit| {gap:.5f} (limit {limit}); by row '
+        f'{[round(g, 5) for g in gaps]} (the prompt row last)')
+    _drop(eng, rids)
+    if not gap <= limit:
+        raise AssertionError(f'{tag}: mixed-step logits disagree with the '
+                             'plain path')
+    return gap
+
+
+def _margin_at(eng, prompt) -> float:
+    """Top-1 minus top-2 logit of the plain engine after `prompt`."""
+    rids = _live(eng, [prompt], 2)
+    row = next(i for i, s in enumerate(eng._slots) if s is not None)  # pylint: disable=protected-access
+    top = torch.topk(eng._last[row], 2).values  # pylint: disable=protected-access
+    _drop(eng, rids)
+    return (top[0] - top[1]).item()
+
+
+def _same_streams(tag: str, got, want, plain_eng, prompts) -> None:
+    """Greedy streams equal token for token; where not, print the first
+    position that differs and the plain engine's top-2 margin there."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            t = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+            margin = _margin_at(plain_eng, prompts[i] + w[:t])
+            log(f'{tag}: request {i} differs at token {t} ({g[t]} vs '
+                f'{w[t]}); top-2 logit margin there {margin:.4e}')
+            raise AssertionError(f'{tag}: greedy stream differs from plain')
+    log(f'{tag}: greedy streams equal to plain decode, '
+        f'{sum(len(w) for w in want)} tokens')
+
+
+def phase_invariants(dev) -> None:
+    """The reference's invariants on the card, at f32 and 4 layers."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    _free()
+    kw = dict(model='llama3-8b', max_seq_len=4096, prefill_chunk=512,
+              n_slots=4, page_size=PS,
+              model_overrides={'n_layers': UNPAGED_LAYERS, 'dtype': 'float32'},
+              param_dtype=torch.float32, decode_kernel='fused',
+              prefill_kernel='xla', device=dev)
+    rng = np.random.RandomState(13)
+    prompts = [rng.randint(0, 128256, n).tolist() for n in UNPAGED_LENS]
+    cfg = engine_lib.SamplingConfig(max_new_tokens=INV_NEW)
+    plain = engine_lib.ContinuousBatchingEngine(**kw)
+    want = plain.generate(prompts, cfg)
+    for tag, extra in (
+            ('spec (draft: the target\'s config and seed)', dict(
+                spec_k=SPEC_K, draft_model='llama3-8b',
+                draft_overrides=kw['model_overrides'])),
+            ('mixed', dict(prefill_mix_budget=MIX_BUDGET))):
+        eng = engine_lib.ContinuousBatchingEngine(**kw, **extra)
+        _reset_launch_counts()
+        got = eng.generate(prompts, cfg)
+        info = eng.speculation_info()
+        log(f'invariants, f32, {UNPAGED_LAYERS} layers, {tag}: kernel 4 '
+            f'launches by S {_by_s()}, speculation {info}')
+        _same_streams(f'invariants {tag}', got, want, plain, prompts)
+        if info is not None and info['accepted_tokens'] <= 0:
+            raise AssertionError('invariants: the draft accepted nothing')
+        del eng
+        _free()
+    del plain
+    _free()
+
+
+def phase_serve_spec(dev) -> dict:
+    """Speculative decoding through the server: n-gram, then a llama3.2-1b
+    draft; readings, the verify forward's kernels vs plain (bf16 and int8
+    caches), and the token agreement with plain bf16 decode."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    _free()
+    vocab = 128256
+    cfg = engine_lib.SamplingConfig(max_new_tokens=SPEC_NEW)
+    plain = engine_lib.ContinuousBatchingEngine(
+        model='llama3-8b', max_seq_len=4096, prefill_chunk=512, n_slots=8,
+        page_size=PS, device=dev)
+    prompts, echo = echo_prompts(plain, template_prompts(vocab, 14))
+    log(f'serve_spec: prompts whose first greedy token stands in them: '
+        f'{sum(echo)} of {len(echo)}')
+    if not any(echo):
+        raise AssertionError('serve_spec: no prompt echoes its first token')
+    check = [p for p, e in zip(prompts, echo) if e][:4]
+    want = plain.generate(prompts, cfg)
+    del plain
+    _free()
+    launches, by_s, accepted = {}, {}, 0
+    modes = [('ngram', {}), ('draft', dict(draft_model=SPEC_DRAFT))]
+    while modes:
+        mode, extra = modes.pop(0)
+        srv, http_thread, url = _start_server(dev, 'auto', spec_k=SPEC_K,
+                                              **extra)
+        eng = srv.engine
+        with urllib.request.urlopen(url + '/health?verbose=1',
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        if health['speculation']['mode'] != mode.split('_')[0]:
+            raise AssertionError(f'/health speculation: {health}')
+        _reset_launch_counts()
+        out, burst_s = _post_all(url, [dict(prompt_ids=[p],
+                                            max_new_tokens=SPEC_NEW)
+                                       for p in prompts])
+        launches[mode] = _launch_counts()
+        by_s[mode] = _by_s()
+        srv.shutdown()
+        http_thread.join(timeout=30)
+        info = eng.speculation_info()
+        accepted += info['accepted_tokens']
+        # Each (row, verify) commits its accepted tokens and one more.
+        per_row = info['committed_tokens'] / max(
+            1, info['committed_tokens'] - info['accepted_tokens'])
+        agree = sum(a == b for x, y in zip(out, want) for a, b in zip(x, y))
+        log(f'serve_spec[{mode}]: {len(prompts)} greedy requests '
+            f'({[len(p) for p in prompts]} prompt tokens, {SPEC_NEW} new '
+            f'each) in {burst_s:.2f}s; verify steps {info["steps"]}, '
+            f'proposed {info["proposed_tokens"]}, accepted '
+            f'{info["accepted_tokens"]} (rate {info["acceptance_rate"]}), '
+            f'committed {info["committed_tokens"]} '
+            f'({info["committed_tokens"] / max(1, info["steps"]):.3f} a '
+            f'verify step over the batch, {per_row:.3f} a row); kernel 4 '
+            f'launches by S {by_s[mode]}; launches '
+            f'{launches[mode]}; greedy tokens equal to plain bf16 decode at '
+            f'the same position {agree} of {len(prompts) * SPEC_NEW}')
+        for toks in out:
+            if len(toks) != SPEC_NEW or not all(0 <= t < vocab for t in toks):
+                raise AssertionError(f'bad completion: {toks}')
+        if not (by_s[mode]['float'].get(SPEC_K + 1, 0) > 0
+                and launches[mode]['ragged_prefill'] > 0
+                and info['proposed_tokens'] > 0):
+            raise AssertionError(f'serve_spec[{mode}]: kernel 4 at S '
+                                 f'{SPEC_K + 1} or kernel 5 did not launch, '
+                                 'or nothing was proposed')
+        if mode == 'ngram':
+            verify_check(eng, check, LOGITS_REL_TOL, 'serve_spec')
+        del srv, eng
+        _free()
+        if mode == 'draft' and accepted == 0:
+            # Random weights: the n-gram proposals and the random 1B draft
+            # found nothing the random target agrees with.  A draft of the
+            # target's config and seed (the reference tests' own device)
+            # makes multi-token commits run on the card.
+            modes.append(('draft_same', dict(draft_model='llama3-8b')))
+    if accepted <= 0:
+        raise AssertionError('serve_spec: neither mode accepted a token')
+    # The int8 cache's quant branch at S = k + 1.
+    eng = engine_lib.ContinuousBatchingEngine(
+        model='llama3-8b', max_seq_len=4096, prefill_chunk=512, n_slots=8,
+        page_size=PS, kv_cache_dtype='int8', spec_k=SPEC_K, device=dev)
+    _reset_launch_counts()
+    verify_check(eng, check, INT8_LOGITS_REL_TOL, 'serve_spec[int8]')
+    by_s['int8_check'] = _by_s()
+    if by_s['int8_check']['int8'].get(SPEC_K + 1, 0) <= 0:
+        raise AssertionError('serve_spec[int8]: the quant branch did not '
+                             f'launch at S {SPEC_K + 1}')
+    del eng
+    _free()
+    total = {k: sum(c[k] for c in launches.values())
+             for k in launches['ngram']}
+    log(f'serve_spec: launches by mode {launches}')
+    return dict(launches=total, by_s=by_s)
+
+
+def _post_mixed(url: str, eng, vocab: int) -> tuple:
+    """MIX_DECODE requests decoding (the last two end after MIX_SHORT_NEW
+    tokens), then MIX_LONG long prompts posted once every decode row is
+    live; (completions, seconds)."""
+    rng = np.random.RandomState(15)
+    lens = np.linspace(64, 400, MIX_DECODE).astype(int)
+    prompts = [rng.randint(0, vocab, n).tolist() for n in lens]
+    calls = [dict(prompt_ids=prompts[:-2], max_new_tokens=MIX_LONG_NEW),
+             dict(prompt_ids=prompts[-2:], max_new_tokens=MIX_SHORT_NEW),
+             dict(prompt_ids=[rng.randint(0, vocab, MIX_LONG_LEN).tolist()
+                              for _ in range(MIX_LONG)],
+                  max_new_tokens=16)]
+    out = [None] * len(calls)
+    errors = []
+
+    def one(i):
+        try:
+            out[i] = _post(url + '/generate', calls[i])['tokens']
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(repr(e))
+
+    def until(what: str, cond) -> None:
+        deadline = time.monotonic() + 300
+        while not cond():
+            if time.monotonic() > deadline or errors:
+                raise AssertionError(f'serve_mixed: {what}: {errors}')
+            time.sleep(0.002)
+
+    t0 = time.perf_counter()
+    rid0 = eng._next_rid  # pylint: disable=protected-access
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+    # In this order: the long-running decoders are admitted first, the
+    # short ones after them, and the long prompts once all are live.
+    threads[0].start()
+    until('submission', lambda: eng._next_rid >= rid0 + MIX_DECODE - 2)  # pylint: disable=protected-access
+    threads[1].start()
+    until('decode rows live', lambda: sum(
+        s is not None for s in eng._slots) == MIX_DECODE)  # pylint: disable=protected-access
+    threads[2].start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f'requests failed: {errors}')
+    return [c for call in out for c in call], time.perf_counter() - t0
+
+
+def inter_token_ms(eng, vocab: int) -> list:
+    """Wall ms of each step (one token for every decode row) while two
+    MIX_LONG_LEN-token prompts prefill beside 6 live decode rows, the
+    device synchronized after each step."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    rng = np.random.RandomState(16)
+    rids = _live(eng, [rng.randint(0, vocab, 128).tolist()
+                       for _ in range(6)], 200)
+    for _ in range(3):
+        eng.step()
+    rids += [eng.submit(rng.randint(0, vocab, MIX_LONG_LEN).tolist(),
+                        engine_lib.SamplingConfig(max_new_tokens=4))
+             for _ in range(MIX_LONG)]
+    steps = []
+    torch.cuda.synchronize()
+    while True:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        if not eng._prefills and len(steps) > 1:  # pylint: disable=protected-access
+            break
+    _drop(eng, rids)
+    return steps
+
+
+def phase_serve_mixed(dev) -> dict:
+    """Mixed prefill/decode batches through the server (budget 64): the
+    long prompts prefill inside decode steps, kernel 4 at S 64, kernel 5
+    never; the decode rows' inter-token ms during that prefill against
+    dedicated ticks (readings); one mixed step's kernels vs plain (bf16
+    and int8 caches)."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    _free()
+    vocab = 128256
+    srv, http_thread, url = _start_server(dev, 'auto',
+                                          prefill_mix_budget=MIX_BUDGET)
+    eng = srv.engine
+    _reset_launch_counts()
+    out, secs = _post_mixed(url, eng, vocab)
+    launches = _launch_counts()
+    by_s = {'served': _by_s()}
+    srv.shutdown()
+    http_thread.join(timeout=30)
+    log(f'serve_mixed: {MIX_DECODE} decoding requests, then {MIX_LONG} '
+        f'prompts of {MIX_LONG_LEN} tokens, in {secs:.2f}s; kernel 4 '
+        f'launches by S {by_s["served"]}; kernel 5 launches '
+        f'{launches["ragged_prefill"]}'
+        f' (the mixed prefill runs none); launches {launches}')
+    if any(o is None or not o for o in out):
+        raise AssertionError(f'serve_mixed: bad completions {out}')
+    if not (by_s['served']['float'].get(MIX_BUDGET, 0) > 0
+            and launches['ragged_prefill'] == 0):
+        raise AssertionError('serve_mixed: kernel 4 did not launch at S '
+                             f'{MIX_BUDGET}, or kernel 5 launched')
+    mixed_ms = inter_token_ms(eng, vocab)
+    mixed_check(eng, vocab, LOGITS_REL_TOL, 'serve_mixed')
+    del srv, eng
+    _free()
+    ded = engine_lib.ContinuousBatchingEngine(
+        model='llama3-8b', max_seq_len=4096, prefill_chunk=512, n_slots=8,
+        page_size=PS, device=dev)
+    ded_ms = inter_token_ms(ded, vocab)
+    del ded
+    _free()
+    log(f'serve_mixed: reading, the decode rows\' inter-token ms while '
+        f'{MIX_LONG} prompts of {MIX_LONG_LEN} tokens prefill beside 6 '
+        f'decode rows: mixed (budget {MIX_BUDGET}) {len(mixed_ms)} steps, '
+        f'mean {np.mean(mixed_ms):.2f} max {max(mixed_ms):.2f}; dedicated '
+        f'ticks (512-token chunks) {len(ded_ms)} steps, mean '
+        f'{np.mean(ded_ms):.2f} max {max(ded_ms):.2f}; steps '
+        f'{[round(x, 2) for x in mixed_ms]} / {[round(x, 2) for x in ded_ms]}')
+    eng = engine_lib.ContinuousBatchingEngine(
+        model='llama3-8b', max_seq_len=4096, prefill_chunk=512, n_slots=8,
+        page_size=PS, kv_cache_dtype='int8', prefill_mix_budget=MIX_BUDGET,
+        device=dev)
+    _reset_launch_counts()
+    mixed_check(eng, vocab, INT8_LOGITS_REL_TOL, 'serve_mixed[int8]')
+    by_s['int8_check'] = _by_s()
+    if by_s['int8_check']['int8'].get(MIX_BUDGET, 0) <= 0:
+        raise AssertionError('serve_mixed[int8]: the quant branch did not '
+                             f'launch at S {MIX_BUDGET}')
+    del eng
+    _free()
+    return dict(launches=launches, by_s=by_s, mixed_ms=mixed_ms,
+                dedicated_ms=ded_ms)
+
+
 def _launch_counts() -> dict:
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import paged_attention as pa
@@ -1488,6 +2016,7 @@ def _reset_launch_counts() -> None:
     from skypilot_tpu_torch.ops import ragged_prefill as rp
     pa.launches = rp.launches = 0
     pa.launches_int8 = rp.launches_int8 = 0
+    pa.launches_by_s, pa.launches_int8_by_s = {}, {}
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 
@@ -1629,6 +2158,14 @@ def main() -> int:
     lap('serve_unpaged')
     by_phase['serve_static'] = phase_serve_static(dev, unpaged)['launches']
     lap('serve_static')
+    spec = phase_serve_spec(dev)
+    by_phase['serve_spec'] = spec['launches']
+    lap('serve_spec')
+    mixed = phase_serve_mixed(dev)
+    by_phase['serve_mixed'] = mixed['launches']
+    lap('serve_mixed')
+    phase_invariants(dev)
+    lap('invariants')
     by_phase['train'] = phase_train(dev)
     launches.update({k: v for k, v in by_phase['train'].items()
                      if k.startswith('flash')})
@@ -1654,6 +2191,14 @@ def main() -> int:
             source=f'skypilot_tpu_torch/csrc/{src}.cu',
             replaces=replaces, launches=launches[name],
             launches_by_phase={p: c[name] for p, c in by_phase.items()},
+            # By S in each run of the two phases; 'int8_check' is the
+            # int8 cache's kernels-vs-plain check, not the main path.
+            **({'launches_by_s': {
+                phase: {m: c['int8' if name.endswith('_int8') else 'float']
+                        for m, c in runs['by_s'].items()}
+                for phase, runs in (('serve_spec', spec),
+                                    ('serve_mixed', mixed))}}
+               if name.startswith('paged_decode') else {}),
             **({'branch': 'quant'} if name.endswith('_int8') else {}),
             **kernels[name]))
     log(f'card: {card}')

@@ -2,7 +2,7 @@
 """Planted faults in the paged-decode kernel's split page walk must fail
 chip_smoke.py's decode check.
 
-    python3 scripts/decode_faults.py [fault name ...]
+    python3 scripts/decode_faults.py [--serving] [fault name ...]
 
 (The int8 branch's own faults are scripts/int8_faults.py's, which runs
 them through `run` below.)  For each fault below (or each one named),
@@ -18,7 +18,12 @@ the control and must pass; every fault must fail.  Prints one JSON line
 per run (the fault, whether the check failed and the check line that
 failed it, the run's seconds; a CUDA error fails the check and is
 reported) and exits 0 only when the control passes and every fault
-fails.  Needs one NVIDIA card.
+fails.  With --serving each copy then also runs chip_smoke.py's
+multi-token serving checks on a llama3-8b engine at full depth (bf16
+cache): the first verify forward (`verify_check`, S 5) and one mixed
+step (`mixed_check`, S 64), kernels against plain within
+LOGITS_REL_TOL; the line says which of them each fault breaks (the
+control's line shows that it passes them).  Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -86,6 +91,8 @@ def _check(name: str, tree: str, run_src: str, timeout: int) -> bool:
                          f'{proc.stderr.strip().splitlines()[-3:]}')
     failed_at = next((ln for ln in lines if (m := _WORST.search(ln))
                       and float(m.group(1)) > 1.0), None)
+    result.update(next((json.loads(ln.split(' ', 1)[1]) for ln in lines
+                        if ln.startswith('SERVING_RESULT ')), {}))
     print(json.dumps({'fault': name, **result, 'at': failed_at,
                       'seconds': round(time.perf_counter() - t0, 1)}),
           flush=True)
@@ -115,9 +122,41 @@ def run(faults, run_src: str, timeout: int = 600) -> int:
     return 0 if ok else 1
 
 
+# The same, then the serving checks at S 5 and S 64 (each on its own).
+_SERVING = (
+    'from skypilot_tpu_torch.infer import engine as engine_lib\n'
+    'serving = {}\n'
+    'if crashed is None:\n'
+    '    for name, kw in (("verify", dict(spec_k=c.SPEC_K)),\n'
+    '                     ("mixed", dict(prefill_mix_budget=c.MIX_BUDGET))):\n'
+    '        torch.cuda.empty_cache()\n'
+    '        eng = engine_lib.ContinuousBatchingEngine(\n'
+    '            model="llama3-8b", n_slots=8, max_seq_len=4096,\n'
+    '            prefill_chunk=512, page_size=16, device=dev, **kw)\n'
+    '        try:\n'
+    '            if name == "verify":\n'
+    '                prompts, echo = c.echo_prompts(\n'
+    '                    eng, c.template_prompts(128256, 14))\n'
+    '                prompts = [p for p, e in zip(prompts, echo) if e][:4]\n'
+    '                c.verify_check(eng, prompts, c.LOGITS_REL_TOL, name)\n'
+    '            else:\n'
+    '                c.mixed_check(eng, 128256, c.LOGITS_REL_TOL, name)\n'
+    '            serving[name + "_check_failed"] = False\n'
+    '        except AssertionError:\n'
+    '            serving[name + "_check_failed"] = True\n'
+    '        del eng\n'
+    'print("SERVING_RESULT " + json.dumps(serving))\n')
+_RUN_SERVING = _RUN.replace('print("FAULT_RESULT',
+                            _SERVING + 'print("FAULT_RESULT', 1)
+
+
 def main() -> int:
-    only = sys.argv[1:]
-    return run([f for f in FAULTS if not only or f[0] in only], _RUN)
+    args = sys.argv[1:]
+    serving = '--serving' in args
+    only = [a for a in args if a != '--serving']
+    return run([f for f in FAULTS if not only or f[0] in only],
+               _RUN_SERVING if serving else _RUN,
+               timeout=900 if serving else 600)
 
 
 if __name__ == '__main__':

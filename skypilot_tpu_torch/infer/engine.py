@@ -37,7 +37,21 @@ reference's default, page_size 0) and paged, and of its request-level
     the counterpart of the reference's fold_in(seed, generated) key;
   - with quantize='int8' (weight-only int8, `quantize_params_int8`)
     the model holds int8 weights with f32 scales and dequantizes each
-    just before its use (models/llama.py).
+    just before its use (models/llama.py);
+  - with spec_k > 0 each step is a speculative verify
+    (infer/speculative.py): every live row feeds its pending token and
+    k proposals (n-gram self-drafting, or a draft model's greedy steps)
+    through one S = k + 1 slot forward, acceptance keeps the longest
+    prefix the target agrees with plus one sampled token, and only
+    those are revealed in the kv mask; a slot's first token is sampled
+    at prefill end, with the draw plain decode's first step makes;
+  - with prefill_mix_budget > 0 a prompt is not prefilled on dedicated
+    ticks: admission reserves the slot, and up to the budget of prompt
+    tokens a step ride the decode step's slot forward (S = the budget,
+    at least 2; with speculation, the k + 1 verify window), written
+    straight into the slot's cache row or pages; decode rows feed their
+    token at query 0 and commit one token.  A plain decode step is the
+    same step function at S = 1 with no prompt riding it.
 `InferenceEngine` prefills a whole batch of right-padded prompts at once
 into a contiguous cache and decodes it in lockstep; it runs no kernel,
 as the reference's does not.
@@ -48,9 +62,10 @@ read in plain PyTorch ('xla'); `resolve_kernels` picks, as the
 reference's table does: 'auto' is 'fused' on CUDA with a paged cache,
 else 'xla', and 'fused' without a paged cache is a ValueError.
 
-Not ported yet (later slices): the async pipeline, speculation, mixed
-prefill budgets, disaggregated handoff, live migration, the host-RAM
-tier, recovery, metrics and traces.
+Not ported yet (later slices): the async pipeline (the port steps
+synchronously: one fetch of the committed tokens a step), disaggregated
+handoff, live migration, the host-RAM tier, recovery, metrics and
+traces.
 
 Thread model: submit()/cancel()/wait() are thread-safe; step() must be
 driven by ONE thread (the server's decode loop).
@@ -70,6 +85,7 @@ from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch import models as models_lib
 from skypilot_tpu_torch.infer import failures
 from skypilot_tpu_torch.infer import paging as paging_lib
+from skypilot_tpu_torch.infer import speculative as spec_lib
 from skypilot_tpu_torch.models.llama import (PagedCache, PrefillCache,
                                              SlotCache, quant_axis,
                                              quantize_int8_weight,
@@ -372,6 +388,7 @@ class _Slot:
     generated: int = 0
     outputs: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
+    prompt_ids: List[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -391,6 +408,10 @@ class _PendingPrefill:
     done: int = 0
     shared_len: int = 0       # prefix positions already in the pool
     last_row: Optional[torch.Tensor] = None   # logits at the last token
+    seed: int = 0             # the request's sampling seed
+    # Mixed-batch prefill (prefill_mix_budget > 0): no prefill cache; the
+    # prompt's chunks ride decode steps into the slot's row or pages.
+    mixed: bool = False
 
 
 class ContinuousBatchingEngine:
@@ -414,7 +435,20 @@ class ContinuousBatchingEngine:
                  prefill_kernel: str = 'auto',
                  kv_cache_dtype: str = 'auto',
                  quantize: Optional[str] = None,
+                 spec_k: int = 0,
+                 draft_model: Optional[str] = None,
+                 draft_params: Optional[Mapping[str, torch.Tensor]] = None,
+                 draft_overrides: Optional[Dict[str, Any]] = None,
+                 prefill_mix_budget: int = 0,
                  device: DeviceLike = 'cuda') -> None:
+        if spec_k < 0:
+            raise ValueError(f'spec_k must be >= 0, got {spec_k}')
+        if draft_model is not None and spec_k <= 0:
+            raise ValueError('draft_model requires spec_k > 0')
+        prefill_mix_budget = int(prefill_mix_budget)
+        if prefill_mix_budget < 0:
+            raise ValueError(f'prefill_mix_budget must be >= 0, got '
+                             f'{prefill_mix_budget}')
         self.device = resolve_device(device)
         self.model, self.config = build_model(
             model, params, n_slots=n_slots, max_seq_len=max_seq_len,
@@ -465,6 +499,29 @@ class ContinuousBatchingEngine:
         # Prompt pages found in the pool at admission, and allocated.
         self.prefix_hit_pages = 0
         self.prefix_miss_pages = 0
+        # Mixed-batch stepping: up to this many prompt tokens ride each
+        # decode step (0: dedicated prefill ticks); its query width is
+        # the budget, at least 2 (S = 1 is the decode layout).
+        self.prefill_mix_budget = prefill_mix_budget
+        self._mix_s = max(2, prefill_mix_budget) if prefill_mix_budget \
+            else 0
+        # Speculative decoding: k proposals a row a step, from a draft
+        # model or (without one) n-gram self-drafting.
+        self.spec_k = spec_k
+        self._draft: Optional[spec_lib.DraftRunner] = None
+        if spec_k and draft_model is not None:
+            self._draft = spec_lib.DraftRunner(
+                draft_model, draft_params,
+                target_vocab_size=self.config.vocab_size, n_slots=n_slots,
+                max_seq_len=self.max_seq_len, spec_k=spec_k,
+                model_overrides=draft_overrides, param_dtype=param_dtype,
+                prefill_bucket=prefill_bucket,
+                kv_cache_dtype=kv_cache_dtype, page_size=page_size,
+                kernels=kernels, seed=seed, device=self.device)
+        self.spec_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_committed = 0
 
     # -- request intake ----------------------------------------------------
     def _page_need(self, true_len: int,
@@ -644,18 +701,23 @@ class ContinuousBatchingEngine:
             mask_row = torch.zeros((self.max_seq_len,), dtype=torch.bool,
                                    device=self.device)
             mask_row[:true_len] = True
-            cache1 = PrefillCache.zeros(self.config, 1, self.device)
+            pending = _PendingPrefill(
+                slot_idx=slot_idx, rid=rid, cfg=cfg, true_len=true_len,
+                pad=pad, tokens=tokens, mask_row=mask_row, cache1=None,
+                pages=pages, table_row=table_row, done=shared_len,
+                shared_len=shared_len,
+                seed=cfg.seed if cfg.seed is not None else (
+                    hash((self._seed0, rid)) & 0x7FFFFFFF))
+            if self.prefill_mix_budget > 0:
+                self._admit_mixed(pending)
+                return True
+            pending.cache1 = PrefillCache.zeros(self.config, 1, self.device)
             if shared_len:
-                hydrate(cache1, self._cache, table_row, len(shared),
+                hydrate(pending.cache1, self._cache, table_row, len(shared),
                         shared_len)
         except Exception:
             self._release_pages(pages)
             raise
-        pending = _PendingPrefill(
-            slot_idx=slot_idx, rid=rid, cfg=cfg, true_len=true_len,
-            pad=pad, tokens=tokens, mask_row=mask_row, cache1=cache1,
-            pages=pages, table_row=table_row, done=shared_len,
-            shared_len=shared_len)
         self._prefills.append(pending)
         if self.prefill_chunk <= 0:
             try:
@@ -668,6 +730,23 @@ class ContinuousBatchingEngine:
             self._prefills.remove(pending)
             self._finish_prefill(pending)
         return True
+
+    def _admit_mixed(self, pending: _PendingPrefill) -> None:
+        """Mixed-batch admission: no prefill cache and no insert; the
+        prompt's chunks ride decode steps (`_mixed_step`, `_spec_step`)
+        and write straight into the slot's cache row or pool pages.  This
+        only reserves the slot and resets its kv-mask row; a shared prefix
+        arrives revealed (its pages are in the pool), so nothing is
+        hydrated.  The slot's block-table row is written when its first
+        chunk rides (`_mix_rows`): until then the row's table is the null
+        page's, so a step in which it rides no chunk writes its pad
+        queries there and not into the shared prefix's last page (the
+        reference writes the table here, and such a step writes over the
+        prefix's last position)."""
+        pending.mixed = True
+        self._kv_mask[pending.slot_idx] = False
+        self._kv_mask[pending.slot_idx, :pending.shared_len] = True
+        self._prefills.append(pending)
 
     @torch.no_grad()
     def _prefill_chunk_step(self, pending: _PendingPrefill) -> None:
@@ -717,15 +796,51 @@ class ContinuousBatchingEngine:
         pending.cache1 = None
         self._last[slot] = pending.last_row
         self._kv_mask[slot] = pending.mask_row
+        self._go_live(pending)
+        if self.spec_k:
+            cfg = pending.cfg
+            self._spec_seed_slot(pending, int(sample_logits_rows(
+                pending.last_row[None],
+                [row_generator(pending.seed, 0, self.device)
+                 if cfg.temperature > 0 else None],
+                **self._filter_args(np.array([cfg.temperature], np.float32),
+                                    np.array([cfg.top_k]),
+                                    np.array([cfg.top_p], np.float32)))[0]))
+
+    def _go_live(self, pending: _PendingPrefill) -> None:
+        """A live slot for a pending whose prompt is all in the cache."""
         cfg = pending.cfg
-        seed = cfg.seed if cfg.seed is not None else (
-            hash((self._seed0, pending.rid)) & 0x7FFFFFFF)
-        self._slots[slot] = _Slot(
+        self._slots[pending.slot_idx] = _Slot(
             request_id=pending.rid, prompt_len=pending.true_len,
             pad_len=pending.pad, max_new=cfg.max_new_tokens,
             eos_id=cfg.eos_id, temperature=cfg.temperature,
-            top_k=cfg.top_k, top_p=cfg.top_p, seed=seed,
-            pages=pending.pages)
+            top_k=cfg.top_k, top_p=cfg.top_p, seed=pending.seed,
+            pages=pending.pages,
+            prompt_ids=pending.tokens[0, :pending.true_len].tolist())
+
+    def _finish_mixed(self, pending: _PendingPrefill,
+                      seed_tok: Optional[int]) -> None:
+        """Promote a mixed pending whose prompt is all in the cache to a
+        live slot: its K/V was written in place by the steps it rode, and
+        `_last` holds its last prompt token's logits (plain) or its first
+        token was drawn in the verify that wrote its last chunk
+        (`seed_tok`, speculation)."""
+        self._go_live(pending)
+        if self.page_size:
+            self._alloc.register_prefix(
+                self._slots[pending.slot_idx].prompt_ids, pending.pages)
+        if self.spec_k:
+            self._spec_seed_slot(pending, seed_tok)
+
+    def _spec_seed_slot(self, pending: _PendingPrefill, tok: int) -> None:
+        """Speculation's bootstrap at prefill end: the verify feeds the
+        pending token first, so a new slot commits its first token now;
+        with a draft model the prompt is prefilled into the draft's slot
+        too."""
+        if self._draft is not None:
+            self._draft.admit(pending.slot_idx, pending.tokens,
+                              pending.mask_row, pending.pad)
+        self._commit_token(pending.slot_idx, tok)
 
     def _commit_token(self, slot_idx: int, tok: int) -> bool:
         """Append one token; complete the slot on eos or budget."""
@@ -769,6 +884,9 @@ class ContinuousBatchingEngine:
         for p in self._prefills:
             if p.rid in snapshot:
                 self._release_pages(p.pages)
+                if p.mixed and self.page_size:
+                    # A mixed pending may have written its table row.
+                    clear_table(self._cache, p.slot_idx)
             else:
                 keep.append(p)
         self._prefills = keep
@@ -817,6 +935,10 @@ class ContinuousBatchingEngine:
             break
         still_pending = []
         for pending in self._prefills:
+            if pending.mixed:
+                # Mixed pendings advance inside decode steps.
+                still_pending.append(pending)
+                continue
             try:
                 self._prefill_chunk_step(pending)
             except Exception as e:  # pylint: disable=broad-except
@@ -830,66 +952,35 @@ class ContinuousBatchingEngine:
                 still_pending.append(pending)
         self._prefills = still_pending
 
-    def _decode_inputs(self, occupied: List[int]) -> Dict[str, Any]:
-        """Host-side inputs of the next decode step for `occupied`."""
+    def _decode_rows(self, occupied: List[int]) -> Dict[str, Any]:
+        """Host vectors [B] of a decode step for `occupied`: each row
+        writes its next token at pad_len + generated, at rope position
+        prompt_len + generated, a sampled row with its generator for that
+        token; and the rows' sampling settings."""
         b = self.n_slots
-        cursors = np.zeros((b,), np.int64)
-        rope = np.zeros((b,), np.int64)
-        active = np.zeros((b,), bool)
-        temps = np.zeros((b,), np.float32)
-        top_ks = np.zeros((b,), np.int64)
-        top_ps = np.ones((b,), np.float32)
-        generators: List[Optional[torch.Generator]] = [None] * b
+        h = self._row_inputs(occupied)
+        h.update(cursors=np.zeros((b,), np.int64),
+                 rope=np.zeros((b,), np.int64), generators=[None] * b)
         for i in occupied:
             s = self._slots[i]
-            cursors[i] = s.pad_len + s.generated
-            rope[i] = s.prompt_len + s.generated
-            active[i] = True
-            temps[i] = s.temperature
-            top_ks[i] = s.top_k
-            top_ps[i] = s.top_p
+            h['cursors'][i] = s.pad_len + s.generated
+            h['rope'][i] = s.prompt_len + s.generated
             if s.temperature > 0:
-                generators[i] = row_generator(s.seed, s.generated,
-                                              self.device)
-        max_k = top_k_bucket(int(top_ks.max()), self.config.vocab_size)
-        use_top_p = bool((top_ps < 1.0).any())
-        if self.kv_read_bucket > 0:
-            live = int(cursors[occupied].max()) + 1
-            gran = self.kv_read_bucket
-            bucket = min(self.max_seq_len, ((live + gran - 1) // gran) * gran)
-        else:
-            bucket = self.max_seq_len
-        dev = self.device
-        return dict(
-            cursors=torch.as_tensor(cursors, device=dev),
-            rope=torch.as_tensor(rope, device=dev),
-            active=torch.as_tensor(active, device=dev),
-            temps=torch.as_tensor(temps, device=dev),
-            top_ks=torch.as_tensor(top_ks, device=dev),
-            top_ps=torch.as_tensor(top_ps, device=dev),
-            generators=generators, max_k=max_k, use_top_p=use_top_p,
-            top_p_in_topk=bool(use_top_p and max_k > 0 and
-                               (top_ks[top_ps < 1.0] > 0).all()),
-            bucket=bucket)
+                h['generators'][i] = row_generator(s.seed, s.generated,
+                                                   self.device)
+        return h
 
-    def _decode_forward(self, inp: Dict[str, Any], kernel: str
-                        ) -> Tuple[torch.Tensor, torch.Tensor,
-                                   torch.Tensor]:
-        """Sample every slot's next token from the last logits, reveal
-        each active slot's write position in a copy of the kv mask, and
-        run the one-token forward.  Returns (tokens [B], logits [B, V],
-        the revealed mask); the K/V of the step are written in place."""
-        tok = sample_logits_rows(
-            self._last, inp['generators'], inp['temps'], inp['top_ks'],
-            inp['top_ps'], max_k=inp['max_k'], use_top_p=inp['use_top_p'],
-            top_p_in_topk=inp['top_p_in_topk'])
-        rows = torch.arange(self.n_slots, device=self.device)
-        kv_mask = self._kv_mask.clone()
-        kv_mask[rows, inp['cursors']] |= inp['active']
-        logits = self.model(tok[:, None], inp['rope'][:, None], self._cache,
-                            kv_mask, kernel=kernel,
-                            read_len=inp['bucket'])
-        return tok, logits[:, 0], kv_mask
+    def _device_inputs(self, h: Dict[str, Any], names: Sequence[str],
+                       live: int) -> Dict[str, Any]:
+        """A step's inputs from host vectors `h`: the named ones on the
+        device, the filter arguments, the generators and the read window
+        of a step whose last query sits at live - 1."""
+        dev = self.device
+        out = {name: torch.as_tensor(h[name], device=dev) for name in names}
+        out.update(filt=self._filter_args(h['temps'], h['top_ks'],
+                                          h['top_ps']),
+                   generators=h['generators'], bucket=self._read_bucket(live))
+        return out
 
     @torch.no_grad()
     def decode_logits(self, kernel: str) -> torch.Tensor:
@@ -900,26 +991,362 @@ class ContinuousBatchingEngine:
         occupied = [i for i, s in enumerate(self._slots) if s is not None]
         if not occupied:
             raise RuntimeError('no occupied slot to decode')
-        return self._decode_forward(self._decode_inputs(occupied),
-                                    kernel)[1]
+        return self._mixed_forward(self._mixed_inputs(occupied, [], 1),
+                                   kernel)[1]
+
+    # -- mixed prefill/decode batches -----------------------------------
+    def _mix_assignments(self, mixed: List[_PendingPrefill],
+                         s_cap: int) -> List[int]:
+        """FIFO split of a step's prefill-token budget over the mixed
+        pendings: earlier admissions drain first; a row never takes more
+        than s_cap tokens (the step's query width) or what its prompt
+        still needs."""
+        left = self.prefill_mix_budget
+        takes: List[int] = []
+        for p in mixed:
+            take = max(0, int(min(left, s_cap, p.true_len - p.done)))
+            takes.append(take)
+            left -= take
+        return takes
+
+    def _mix_rows(self, mixed: List[_PendingPrefill],
+                  s_cap: int) -> List[Tuple[_PendingPrefill, int]]:
+        """(pending, tokens) of each mixed pending that rides this step;
+        a paged pending's block-table row is written at its first ride."""
+        mix = [(p, take) for p, take in
+               zip(mixed, self._mix_assignments(mixed, s_cap)) if take > 0]
+        for p, _ in mix:
+            if self.page_size and p.done == p.shared_len:
+                set_table(self._cache, p.table_row, p.slot_idx)
+        return mix
+
+    def _read_bucket(self, live: int) -> int:
+        """The read window of a step whose last query sits at live - 1."""
+        if self.kv_read_bucket <= 0:
+            return self.max_seq_len
+        gran = self.kv_read_bucket
+        return min(self.max_seq_len, ((live + gran - 1) // gran) * gran)
+
+    def _row_inputs(self, occupied: List[int]) -> Dict[str, Any]:
+        """Host vectors [B] of the occupied slots' sampling settings."""
+        b = self.n_slots
+        inp = dict(temps=np.zeros((b,), np.float32),
+                   top_ks=np.zeros((b,), np.int64),
+                   top_ps=np.ones((b,), np.float32),
+                   active=np.zeros((b,), bool))
+        for i in occupied:
+            s = self._slots[i]
+            inp['temps'][i] = s.temperature
+            inp['top_ks'][i] = s.top_k
+            inp['top_ps'][i] = s.top_p
+            inp['active'][i] = True
+        return inp
+
+    def _filter_args(self, temps: np.ndarray, top_ks: np.ndarray,
+                     top_ps: np.ndarray) -> Dict[str, Any]:
+        """sample_logits_rows' per-row vectors (on the device) and its
+        static arguments, from host vectors."""
+        max_k = top_k_bucket(int(top_ks.max()), self.config.vocab_size)
+        use_top_p = bool((top_ps < 1.0).any())
+        dev = self.device
+        return dict(
+            temps=torch.as_tensor(temps, device=dev),
+            top_ks=torch.as_tensor(top_ks, device=dev),
+            top_ps=torch.as_tensor(top_ps, device=dev), max_k=max_k,
+            use_top_p=use_top_p,
+            top_p_in_topk=bool(use_top_p and max_k > 0 and
+                               (top_ks[top_ps < 1.0] > 0).all()))
+
+    def _mixed_inputs(self, occupied: List[int],
+                      mixed: List[_PendingPrefill], s: int
+                      ) -> Dict[str, Any]:
+        """Inputs of one step of query width `s`: a decode row feeds its
+        next token at query 0, and the mixed pending rows take up to the
+        budget of prompt tokens, each chunk at its cache cursor (slot =
+        rope position = done for a prompt row).  A plain decode step is
+        s = 1 with no mixed pending."""
+        b = self.n_slots
+        h = self._decode_rows(occupied)
+        h.update(tokens=np.zeros((b, s), np.int64),
+                 n_commit=np.zeros((b,), np.int64),
+                 last_pos=np.zeros((b,), np.int64),
+                 update_last=np.ones((b,), bool))
+        # `_last` keeps only a prompt row's whose chunk does not end it.
+        h['n_commit'][occupied] = 1
+        mix = self._mix_rows(mixed, s)
+        for p, take in mix:
+            i = p.slot_idx
+            h['cursors'][i] = h['rope'][i] = p.done
+            h['tokens'][i, :take] = p.tokens[0, p.done:p.done + take]
+            h['n_commit'][i] = take
+            h['update_last'][i] = p.done + take >= p.true_len
+            h['last_pos'][i] = take - 1 if h['update_last'][i] else 0
+        # Query s - 1 attends through position cursor + s - 1.
+        work = occupied + [p.slot_idx for p, _ in mix]
+        inp = self._device_inputs(
+            h, ('active', 'cursors', 'rope', 'tokens', 'n_commit',
+                'last_pos', 'update_last'), int(h['cursors'][work].max()) + s)
+        inp['mix'] = mix
+        return inp
+
+    def _mixed_forward(self, inp: Dict[str, Any], kernel: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+        """The one-token step at S = the step's width: decode rows sample
+        from the last logits and feed the token at query 0 (pad queries
+        after it), prompt rows feed their chunk.  Each working row's
+        query-0 slot is revealed before the forward, and its committed
+        window [cursor, cursor + n_commit) after it; pad queries' K/V
+        stays unrevealed, rewritten in place by a later step.  Returns
+        (tokens [B], each row's logits at its last_pos [B, V], the
+        revealed mask)."""
+        tok = sample_logits_rows(self._last, inp['generators'],
+                                 **inp['filt'])
+        rows = torch.arange(self.n_slots, device=self.device)
+        cursors, n_commit = inp['cursors'], inp['n_commit']
+        has_work = n_commit > 0
+        kv_mask = self._kv_mask.clone()
+        kv_mask[rows, cursors] |= has_work
+        tokens = inp['tokens']
+        # A prompt row feeds its chunk; every other row the sampled token
+        # (a dead row's write lands on no slot a live row reads).
+        chunk = has_work & ~inp['active']
+        feed = torch.cat([torch.where(chunk, tokens[:, 0], tok)[:, None],
+                          tokens[:, 1:]], dim=1)
+        positions = inp['rope'][:, None] + torch.arange(
+            feed.shape[1], device=self.device)
+        x = self.model.hidden(feed, positions, self._cache, kv_mask,
+                              kernel=kernel, read_len=inp['bucket'])
+        kv_mask |= spec_lib.commit_window(self.max_seq_len, cursors,
+                                          n_commit, has_work)
+        return tok, self.model.head(x[rows, inp['last_pos']]), kv_mask
+
+    @torch.no_grad()
+    def mixed_logits(self, kernel: str) -> Tuple[torch.Tensor, List[int]]:
+        """The next mixed step's logits at each row's last_pos [B, V]
+        (decode rows: query 0; a prompt row: its last prompt token when
+        the chunk ends the prompt, else query 0) with `kernel`, and the
+        rows that work, committing nothing: the step rewrites the same
+        K/V when it runs.  For holding the kernels against their plain
+        versions on the serving path."""
+        occupied = [i for i, s in enumerate(self._slots) if s is not None]
+        inp = self._mixed_inputs(
+            occupied, [p for p in self._prefills if p.mixed], self._mix_s)
+        rows = occupied + [p.slot_idx for p, _ in inp['mix']]
+        return self._mixed_forward(inp, kernel)[1], rows
+
+    def _mixed_step(self, occupied: List[int],
+                    mixed: List[_PendingPrefill]) -> None:
+        """One decode step for `occupied`, at the mix width carrying the
+        mixed pendings' prompt chunks when there are any, else at S = 1."""
+        rids = [self._slots[i].request_id for i in occupied]
+        inp = self._mixed_inputs(occupied, mixed,
+                                 self._mix_s if mixed else 1)
+        tok, new_last, self._kv_mask = self._mixed_forward(
+            inp, self.decode_kernel)
+        self._last = torch.where(inp['update_last'][:, None], new_last,
+                                 self._last)
+        self._commit_rows(occupied, rids, tok.cpu().numpy()[:, None],
+                          np.ones((self.n_slots,), np.int64))
+        self._advance_mix(inp['mix'], None)
+
+    def _advance_mix(self, mix: List[Tuple[_PendingPrefill, int]],
+                     toks: Optional[np.ndarray]) -> None:
+        """Advance each ridden pending's cursor; promote a prompt that is
+        all in the cache to a live slot (with a verify's first token
+        toks[slot, 0] under speculation)."""
+        for pending, take in mix:
+            if pending not in self._prefills:
+                continue
+            pending.done += take
+            if pending.done >= pending.true_len:
+                self._prefills.remove(pending)
+                self._finish_mixed(pending, None if toks is None
+                                   else int(toks[pending.slot_idx, 0]))
+
+    def _commit_rows(self, occupied: List[int], rids: List[int],
+                     toks: np.ndarray, counts: np.ndarray) -> int:
+        """Commit toks[i, :counts[i]] to each occupied slot still held by
+        its request, a slot's tail dropped once it completes; returns the
+        tokens committed."""
+        committed = 0
+        for i, rid in zip(occupied, rids):
+            s = self._slots[i]
+            if s is None or s.request_id != rid:
+                continue
+            for j in range(int(counts[i])):
+                committed += 1
+                if self._commit_token(i, int(toks[i, j])):
+                    break       # eos or budget: drop the tail
+        return committed
+
+    # -- speculative decoding ----------------------------------------------
+    def _spec_inputs(self, occupied: List[int],
+                     mixed: List[_PendingPrefill]) -> Dict[str, Any]:
+        """Inputs of one verify: each live row's pending token (its last
+        output, not yet in the cache) at the slot one before plain
+        decode's cursor, with up to n_prop = min(k, budget left - 1)
+        proposals behind it; mixed prompt rows ride the same k + 1 window
+        with their chunk in the pending and proposal seats (inactive, so
+        acceptance ignores them).  `drafts` is n-gram's proposals, or None
+        for the draft model's."""
+        b, k = self.n_slots, self.spec_k
+        h = self._row_inputs(occupied)
+        h.update(cursors=np.zeros((b,), np.int64),
+                 rope=np.zeros((b,), np.int64),
+                 t_pend=np.zeros((b,), np.int64),
+                 n_prop=np.zeros((b,), np.int64),
+                 mix_drafts=np.zeros((b, k), np.int64),
+                 mix_real=np.zeros((b,), np.int64),
+                 mix_seed=np.zeros((b,), bool), generators=[None] * b)
+        seed_gens: List[Optional[torch.Generator]] = [None] * b
+        for i in occupied:
+            s = self._slots[i]
+            h['cursors'][i] = s.pad_len + s.generated - 1
+            h['rope'][i] = s.prompt_len + s.generated - 1
+            h['t_pend'][i] = s.outputs[-1]
+            h['n_prop'][i] = min(k, s.max_new - s.generated - 1)
+            if s.temperature > 0:
+                h['generators'][i] = spec_lib.verify_generator(
+                    s.seed, s.generated, self.device)
+        mix = self._mix_rows(mixed, k + 1)
+        for p, take in mix:
+            i, cfg = p.slot_idx, p.cfg
+            h['cursors'][i] = h['rope'][i] = p.done
+            h['t_pend'][i] = p.tokens[0, p.done]
+            h['mix_drafts'][i, :take - 1] = p.tokens[0, p.done + 1:
+                                                     p.done + take]
+            h['temps'][i] = cfg.temperature
+            h['top_ks'][i] = cfg.top_k
+            h['top_ps'][i] = cfg.top_p
+            h['mix_real'][i] = take
+            h['mix_seed'][i] = p.done + take >= p.true_len
+            if h['mix_seed'][i] and cfg.temperature > 0:
+                seed_gens[i] = row_generator(p.seed, 0, self.device)
+        if self._draft is None:
+            # n-gram self-drafting, on the host, into the rows the prompt
+            # chunks leave free.
+            for i in occupied:
+                s = self._slots[i]
+                props = spec_lib.ngram_propose(s.prompt_ids + s.outputs,
+                                               int(h['n_prop'][i]))
+                h['mix_drafts'][i, :len(props)] = props
+                h['n_prop'][i] = len(props)
+        # Query k attends through position cursor + k.
+        work = occupied + [p.slot_idx for p, _ in mix]
+        inp = self._device_inputs(
+            h, ('active', 'cursors', 'rope', 't_pend', 'n_prop',
+                'mix_drafts', 'mix_real', 'mix_seed'),
+            int(h['cursors'][work].max()) + k + 1)
+        inp.update(seed_gens=seed_gens, mix=mix,
+                   drafts=inp['mix_drafts'] if self._draft is None else None,
+                   proposed=int(h['n_prop'][occupied].sum()))
+        return inp
+
+    def _spec_forward(self, inp: Dict[str, Any], kernel: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+        """One verify: the proposals (the draft model's, or n-gram's from
+        `inp`), each working row's query-0 slot revealed, the k + 1
+        forward, acceptance, and the committed window [cursor, cursor +
+        count) revealed (a prompt row's whole chunk).  Rejected and pad
+        K/V stays written but hidden.  Returns (out [B, k+1], counts [B],
+        logits [B, k+1, V], the revealed mask); a seeding prompt row's
+        out[:, 0] is its first token, drawn as plain decode's first step
+        draws it."""
+        rows = torch.arange(self.n_slots, device=self.device)
+        active, cursors = inp['active'], inp['cursors']
+        mix_real = inp['mix_real']
+        drafts = inp['drafts']
+        if drafts is None:
+            drafts = self._draft.propose(inp['t_pend'], inp['rope'],
+                                         cursors, active, inp['bucket'])
+            # Prompt rows take their chunk, not the draft's garbage.
+            drafts = torch.where((mix_real > 0)[:, None],
+                                 inp['mix_drafts'], drafts)
+        act_w = active | (mix_real > 0)
+        kv_mask = self._kv_mask.clone()
+        kv_mask[rows, cursors] |= act_w
+        tokens = torch.cat([inp['t_pend'][:, None], drafts], dim=1)
+        positions = inp['rope'][:, None] + torch.arange(
+            tokens.shape[1], device=self.device)
+        logits = self.model(tokens, positions, self._cache, kv_mask,
+                            kernel=kernel, read_len=inp['bucket'])
+        out, counts = spec_lib.accept_draft_rows(
+            logits, drafts, inp['n_prop'], inp['generators'],
+            **inp['filt'])
+        counts = torch.where(active, counts, 0)
+        kv_mask |= spec_lib.commit_window(
+            self.max_seq_len, cursors,
+            torch.where(mix_real > 0, mix_real, counts), act_w)
+        if inp['mix']:
+            seed_tok = sample_logits_rows(
+                logits[rows, torch.clamp(mix_real - 1, min=0)],
+                inp['seed_gens'], **inp['filt'])
+            out[:, 0] = torch.where(inp['mix_seed'], seed_tok, out[:, 0])
+        return out, counts, logits, kv_mask
+
+    @torch.no_grad()
+    def verify_logits(self, kernel: str) -> torch.Tensor:
+        """The next verify's logits [B, k+1, V] with `kernel`, committing
+        nothing: the verify rewrites the same K/V when it runs (and the
+        draft model its own).  For holding the kernels against their
+        plain versions on the serving path."""
+        occupied = [i for i, s in enumerate(self._slots) if s is not None]
+        inp = self._spec_inputs(
+            occupied, [p for p in self._prefills if p.mixed])
+        return self._spec_forward(inp, kernel)[2]
+
+    def _spec_step(self, occupied: List[int],
+                   mixed: List[_PendingPrefill]) -> None:
+        rids = [self._slots[i].request_id for i in occupied]
+        inp = self._spec_inputs(occupied, mixed)
+        out, counts, _, self._kv_mask = self._spec_forward(
+            inp, self.decode_kernel)
+        if self._draft is not None:
+            self._draft.commit(inp['cursors'], counts, inp['active'])
+        # One fetch of the step's tokens and counts.
+        host = torch.cat([out, counts[:, None]], dim=1).cpu().numpy()
+        toks, counts = host[:, :-1], host[:, -1]
+        self.spec_steps += 1
+        self.spec_proposed += inp['proposed']
+        self.spec_accepted += int(sum(counts[i] - 1 for i in occupied))
+        self.spec_committed += self._commit_rows(occupied, rids, toks,
+                                                 counts)
+        self._advance_mix(inp['mix'], toks)
+
+    def speculation_info(self) -> Optional[Dict[str, Any]]:
+        """Speculation summary (None when disabled): the proposer, k, and
+        the cumulative verify steps, proposed, accepted and committed
+        tokens, with the acceptance rate."""
+        if not self.spec_k:
+            return None
+        proposed = self.spec_proposed
+        return dict(
+            mode='draft' if self._draft is not None else 'ngram',
+            draft_model=(self._draft.model_name
+                         if self._draft is not None else None),
+            spec_k=self.spec_k, steps=self.spec_steps,
+            proposed_tokens=proposed, accepted_tokens=self.spec_accepted,
+            committed_tokens=self.spec_committed,
+            acceptance_rate=(self.spec_accepted / proposed
+                             if proposed else None))
 
     @torch.no_grad()
     def step(self) -> bool:
         """One scheduler tick: admission and prefill chunks, then one
-        decode step for all occupied slots.  False when fully idle."""
+        decode step for all occupied slots (a verify under speculation;
+        carrying prompt chunks with a mix budget).  False when fully
+        idle."""
         self._schedule_front()
         occupied = [i for i, s in enumerate(self._slots) if s is not None]
-        if not occupied:
+        mixed = [p for p in self._prefills if p.mixed]
+        if not occupied and not mixed:
             return bool(self._prefills) or bool(self._queue)
-        rids = [self._slots[i].request_id for i in occupied]
-        inp = self._decode_inputs(occupied)
-        tok, self._last, self._kv_mask = self._decode_forward(
-            inp, self.decode_kernel)
-        toks = tok.cpu().numpy()
-        for i, rid in zip(occupied, rids):
-            s = self._slots[i]
-            if s is not None and s.request_id == rid:
-                self._commit_token(i, int(toks[i]))
+        if self.spec_k:
+            self._spec_step(occupied, mixed)
+        else:
+            self._mixed_step(occupied, mixed)
         return True
 
     def run_until_idle(self) -> None:

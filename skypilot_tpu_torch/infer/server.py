@@ -4,7 +4,10 @@ Port of the /generate surface of skypilot_tpu/infer/server.py:
 
   GET  /health    -> 200 {"status": "ok"} once the engine is warm,
                      503 {"status": "unhealthy", ...} after a fatal
-                     decode-loop failure
+                     decode-loop failure; ?verbose=1 adds the replica's
+                     detail (model, slots, page size, queue depth, the
+                     allocator's leak report, and speculation's counts
+                     on a speculating engine)
   POST /generate  -> {"tokens": [[...], ...]}
        body: {"prompt_ids": [[...], ...], "max_new_tokens": N,
               "temperature": T, "top_k": K, "top_p": P, "eos_id": E,
@@ -21,13 +24,23 @@ With `continuous=False` (--no-continuous) the server runs the
 request-level InferenceEngine instead: each /generate call runs
 `generate` on its whole batch under a lock, with no decode loop and no
 queue-depth shed; the continuous-only flags --decode-kernel,
---prefill-kernel and --page-size are refused at startup, as the
-reference refuses them (it accepts --prefill-chunk and ignores it).
+--prefill-kernel, --page-size, --prefill-mix-budget, --spec-k and
+--draft-model are refused at startup, as the reference refuses them (it
+accepts --prefill-chunk and ignores it).
+
+--spec-k K turns on speculative decoding (K proposals a step, n-gram
+self-drafting, or a draft model's with --draft-model and
+--draft-overrides); --prefill-mix-budget N lets up to N prompt tokens
+ride each decode step instead of dedicated prefill ticks.  A draft
+model's weights are random (from the engine's seed): --draft-checkpoint-
+dir is not ported yet.
 
 Run: python -m skypilot_tpu_torch.infer.server --model llama3-8b \
          --page-size 16 --prefill-chunk 512 --allow-random-weights
      (add --kv-cache-dtype int8 for the int8 KV cache, --quantize int8
-     for int8 weights; --device cpu runs on the CPU; the default
+     for int8 weights, --spec-k 4 [--draft-model llama3.2-1b] for
+     speculative decoding, --prefill-mix-budget 64 for mixed batches;
+     --device cpu runs on the CPU; the default
      --page-size 0 serves from a contiguous slot cache with no kernel,
      as the reference's default does)
 
@@ -91,6 +104,11 @@ class InferenceServer:
                  prefill_kernel: str = 'auto',
                  kv_cache_dtype: str = 'auto',
                  quantize: Optional[str] = None,
+                 spec_k: int = 0,
+                 draft_model: Optional[str] = None,
+                 draft_overrides: Optional[Dict[str, Any]] = None,
+                 draft_checkpoint_dir: Optional[str] = None,
+                 prefill_mix_budget: int = 0,
                  continuous: bool = True,
                  default_deadline_s: Optional[float] = None,
                  max_queue_depth: Optional[int] = None,
@@ -99,6 +117,11 @@ class InferenceServer:
             raise ValueError(
                 'refusing to serve randomly initialized weights: pass '
                 'params (or allow_random_weights=True for tests/dev).')
+        if draft_checkpoint_dir is not None:
+            raise NotImplementedError(
+                'draft_checkpoint_dir is not ported yet (ROADMAP.md queue '
+                "1: 'Checkpoint and launch'); a draft model serves random "
+                'weights from the engine seed')
         self.continuous = continuous
         if continuous:
             self.engine = engine_lib.ContinuousBatchingEngine(
@@ -109,7 +132,9 @@ class InferenceServer:
                 max_pages=max_pages, decode_kernel=decode_kernel,
                 prefill_kernel=prefill_kernel,
                 kv_cache_dtype=kv_cache_dtype, quantize=quantize,
-                device=device)
+                spec_k=spec_k, draft_model=draft_model,
+                draft_overrides=draft_overrides,
+                prefill_mix_budget=prefill_mix_budget, device=device)
         else:
             # As the reference, --prefill-chunk and --kv-read-bucket are
             # accepted and unused here.
@@ -118,8 +143,12 @@ class InferenceServer:
                      'paged decode attention is slot-mode only'),
                     ('--prefill-kernel', prefill_kernel != 'auto',
                      'chunked prefill is a slot-engine path'),
+                    ('--prefill-mix-budget', prefill_mix_budget,
+                     'chunked prefill is a slot-engine path'),
                     ('--page-size', page_size,
-                     'the paged KV cache is slot-mode only')):
+                     'the paged KV cache is slot-mode only'),
+                    ('--spec-k/--draft-model', spec_k or draft_model,
+                     'speculation is a slot-mode decode path')):
                 if refused:
                     raise ValueError(f'{flag} requires continuous batching '
                                      f'({why}); drop --no-continuous.')
@@ -149,6 +178,19 @@ class InferenceServer:
         self._decode_thread: Optional[threading.Thread] = None
         self._work = threading.Event()
         self._fatal: Optional[BaseException] = None
+
+    def health_detail(self) -> dict:
+        """The replica's detail for `GET /health?verbose=1`."""
+        eng = self.engine
+        detail = {'model': self.model_name, 'continuous': self.continuous}
+        if self.continuous:
+            detail.update(n_slots=eng.n_slots, page_size=eng.page_size,
+                          queue_depth=eng.queue_depth,
+                          leak_report=eng.allocator_leak_report())
+            spec = eng.speculation_info()
+            if spec is not None:
+                detail['speculation'] = spec
+        return detail
 
     @property
     def port(self) -> int:
@@ -233,12 +275,15 @@ class InferenceServer:
                 self.wfile.write(data)
 
             def do_GET(self):  # noqa: N802
-                route = self.path.split('?', 1)[0]
+                route, _, query = self.path.partition('?')
                 if route == '/health':
                     if outer._fatal is not None:  # pylint: disable=protected-access
                         self._reply(503, {
                             'status': 'unhealthy',
                             'error': repr(outer._fatal)})  # pylint: disable=protected-access
+                    elif 'verbose=1' in query.split('&'):
+                        self._reply(200, dict(status='ok',
+                                              **outer.health_detail()))
                     else:
                         self._reply(200, {'status': 'ok'})
                 elif route in _POST_ROUTES:
@@ -341,6 +386,25 @@ def build_parser() -> argparse.ArgumentParser:
                              'composes with --kv-cache-dtype.')
     parser.add_argument('--model-overrides', default=None,
                         help='JSON dict of model-config overrides.')
+    parser.add_argument('--spec-k', type=int, default=0,
+                        help='Speculative tokens proposed a decode step (0 '
+                             'disables speculation); without --draft-model '
+                             'they come from n-gram prompt lookup.  Greedy '
+                             'output is unchanged, sampled output keeps '
+                             'its distribution (rejection sampling).')
+    parser.add_argument('--draft-model', default=None,
+                        help='Draft model for speculative decoding (same '
+                             'vocabulary as --model, checked at startup); '
+                             'requires --spec-k.')
+    parser.add_argument('--draft-overrides', default=None,
+                        help='JSON dict of draft-model config overrides.')
+    parser.add_argument('--draft-checkpoint-dir', default=None,
+                        help='Not ported yet: a draft model serves random '
+                             'weights (tests/dev).')
+    parser.add_argument('--prefill-mix-budget', type=int, default=0,
+                        help='Mixed prefill/decode batches: up to this many '
+                             'prompt tokens ride each decode step (0 = '
+                             'dedicated prefill ticks).')
     parser.add_argument('--allow-random-weights', action='store_true',
                         help='Serve randomly initialized weights '
                              '(tests/dev; no checkpoint loader yet).')
@@ -348,14 +412,31 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _json_object(parser: argparse.ArgumentParser, flag: str,
+                 text: Optional[str]) -> Optional[dict]:
+    if not text:
+        return None
+    value = json.loads(text)
+    if not isinstance(value, dict):
+        parser.error(f'{flag} must be a JSON object')
+    return value
+
+
+def check_args(parser: argparse.ArgumentParser,
+               args: argparse.Namespace) -> None:
+    """The flag combinations the parser refuses (argparse's exit 2)."""
+    if args.draft_model and not args.spec_k:
+        parser.error('--draft-model requires --spec-k > 0')
+
+
 def main() -> None:
     parser = build_parser()
     args = parser.parse_args()
-    overrides = None
-    if args.model_overrides:
-        overrides = json.loads(args.model_overrides)
-        if not isinstance(overrides, dict):
-            parser.error('--model-overrides must be a JSON object')
+    check_args(parser, args)
+    overrides = _json_object(parser, '--model-overrides',
+                             args.model_overrides)
+    draft_overrides = _json_object(parser, '--draft-overrides',
+                                   args.draft_overrides)
     logging.basicConfig(level=logging.INFO)
     t0 = time.perf_counter()
     server = InferenceServer(
@@ -368,6 +449,10 @@ def main() -> None:
         decode_kernel=args.decode_kernel,
         prefill_kernel=args.prefill_kernel,
         kv_cache_dtype=args.kv_cache_dtype, quantize=args.quantize,
+        spec_k=args.spec_k, draft_model=args.draft_model,
+        draft_overrides=draft_overrides,
+        draft_checkpoint_dir=args.draft_checkpoint_dir,
+        prefill_mix_budget=args.prefill_mix_budget,
         continuous=args.continuous, device=args.device)
     logger.info(f'engine ready in {time.perf_counter() - t0:.1f}s')
     server.serve_forever()

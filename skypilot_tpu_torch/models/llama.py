@@ -13,10 +13,10 @@ Where the reference chooses its attention path through trace-time
 thread-locals (`slot_mode`, `kv_read_bucket`, `decode_kernel`,
 `prefill_kernel`), the port takes explicit arguments: the cache object
 says which path runs (`PrefillCache`: the batch-1 chunked prefill at a
-global cursor; `PagedCache`: one-token slot decode against the page
-pool; `SlotCache`: one-token slot decode against the contiguous
-[B, kvh, max_len, hd] slot rows of an unpaged engine, the reference's
-default), `kernel` picks the CUDA kernels ('fused'), their plain
+global cursor; `PagedCache`: a slot forward against the page pool;
+`SlotCache`: a slot forward against the contiguous [B, kvh, max_len,
+hd] slot rows of an unpaged engine, the reference's default), `kernel`
+picks the CUDA kernels ('fused'), their plain
 versions ('plain') or the reference's XLA read in plain PyTorch
 ('xla'; see `resolve_kernel`), and `read_len` caps the cache reads.
 Caches are updated in place.  With `kv_cache_dtype='int8'` every cache
@@ -29,7 +29,10 @@ and the token embedding are int8 with f32 per-output-row scales (the
 embedding: one per model column), as the reference's
 `quantize_params_int8`; each is dequantized to `param_dtype` just before
 its use, one weight at a time (`dequantize_int8`, the reference's
-`maybe_dequantize_params`).  The training forward (`Llama.train_forward`) takes no cache; it reruns
+`maybe_dequantize_params`).  A slot forward takes S >= 1 queries a
+row: one decode token, or a speculative verify window or a mixed
+prefill/decode step (the reference's `_verify_positions` and
+`_verify_mask`; `_slot_positions`, `_slot_mask`).  The training forward (`Llama.train_forward`) takes no cache; it reruns
 each block in the backward pass (`remat`, through
 torch.utils.checkpoint) as the reference's `nothing_saveable` policy
 does.
@@ -383,55 +386,88 @@ def _xla_read(q: torch.Tensor, cache: Union[PrefillCache, SlotCache],
         cache.value_scale[layer][:, :, :read_len], mask, **kw)
 
 
+def _slot_positions(kv_mask: torch.Tensor, s: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(base [B], pos [B, S]) of a slot forward (the reference's
+    `_verify_positions`): each row's write base is its highest revealed
+    kv_mask slot (0 for a row with none), and query j writes at base + j.
+    The engine reveals only the query-0 slot before the forward; the
+    other positions stay unrevealed until the engine reveals what it
+    commits, so a rejected or padded tail is rolled back by the mask
+    alone and rewritten in place later.  pos may pass max_len - 1 for a
+    row near the end of its budget: those writes are dropped (contiguous)
+    or redirected to the null page (paged)."""
+    max_len = kv_mask.shape[1]
+    slots = torch.arange(max_len, device=kv_mask.device)
+    base = torch.where(kv_mask, slots, 0).amax(-1)
+    return base, base[:, None] + torch.arange(s, device=kv_mask.device)
+
+
+def _slot_mask(kv_mask: torch.Tensor, base: torch.Tensor, s: int,
+               read_len: int, window: Optional[int]) -> torch.Tensor:
+    """[B, 1, S, read_len] visibility of a slot forward (the reference's
+    `_verify_mask`): query j sees every revealed slot and the in-flight
+    window base..base + j, under the sliding window.  At S = 1 this is
+    kv_mask itself for every row with a revealed slot.  Built once a
+    forward and contiguous, so the paged-decode kernel's [B, S, read_len]
+    mask is a view of it in every layer, never a copy."""
+    slots = torch.arange(read_len, device=kv_mask.device)
+    qpos = base[:, None] + torch.arange(s, device=kv_mask.device)
+    visible = kv_mask[:, None, :read_len] | (
+        (slots[None, None, :] >= base[:, None, None])
+        & (slots[None, None, :] <= qpos[:, :, None]))
+    if window is not None:
+        visible &= slots[None, None, :] >= qpos[:, :, None] - window + 1
+    return visible[:, None]
+
+
 class SlotPlan(NamedTuple):
-    """Per-forward inputs of the one-token slot decode, shared by every
-    layer: where each row writes, and what it reads."""
-    phys: torch.Tensor      # [B] physical page of each row's write
-    off: torch.Tensor       # [B] offset of the write in that page
+    """Per-forward inputs of a paged slot forward (S >= 1 queries a row),
+    shared by every layer: where each query writes, and what it reads."""
+    phys: torch.Tensor      # [B, S] physical page of each query's write
+    off: torch.Tensor       # [B, S] offset of the write in that page
     tbl: torch.Tensor       # [B, n_read] int32 block table under the window
-    mask: torch.Tensor      # [B, 1, 1, n_read * ps] bool visibility
+    mask: torch.Tensor      # [B, 1, S, n_read * ps] bool visibility
 
 
-def slot_plan(cache: PagedCache, kv_mask: torch.Tensor, *,
+def slot_plan(cache: PagedCache, kv_mask: torch.Tensor, s: int = 1, *,
               cfg: LlamaConfig, read_len: Optional[int]) -> SlotPlan:
-    """Each row writes at its highest revealed kv_mask slot (0 for a row
-    with none), through its block table; dead rows' tables point at the
-    null page, so their writes land there.  Reads cover the pages under
-    the read window; visibility is kv_mask, plus the sliding window."""
+    """The reference's paged slot branch (`_paged_slot_attention`, every
+    S): query j of a row writes at base + j through its block table, at
+    logical page min(pos // ps, pages_per_slot - 1), and at the null page
+    0 once pos reaches max_len; dead rows' and pad queries' tables point
+    at the null page, so their writes land there.  Reads cover the pages
+    under the read window; visibility is `_slot_mask`."""
     ps = cfg.kv_page_size
     max_len = cfg.max_seq_len
-    b = kv_mask.shape[0]
-    dev = kv_mask.device
-    slots = torch.arange(max_len, device=dev)
-    write_pos = torch.where(kv_mask, slots, 0).amax(-1)
-    rows = torch.arange(b, device=dev)
-    phys = cache.table[rows, write_pos // ps].long()
+    base, pos = _slot_positions(kv_mask, s)
+    lp = torch.clamp(pos // ps, max=max_len // ps - 1)
+    phys = torch.where(pos < max_len, cache.table.gather(1, lp).long(), 0)
     n_read = _read_window(read_len, max_len, ps)
-    visible = kv_mask
-    if cfg.sliding_window is not None:
-        visible = visible & (slots[None, :] >= write_pos[:, None]
-                             - cfg.sliding_window + 1)
-    mask = visible[:, None, None, :n_read * ps].contiguous()
-    return SlotPlan(phys, write_pos % ps,
-                    cache.table[:, :n_read].contiguous(), mask)
+    return SlotPlan(phys, pos % ps, cache.table[:, :n_read].contiguous(),
+                    _slot_mask(kv_mask, base, s, n_read * ps,
+                               cfg.sliding_window))
 
 
 def paged_slot_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, cache: PagedCache,
                          plan: SlotPlan, *, cfg: LlamaConfig,
                          kernel: str) -> torch.Tensor:
-    """One-token slot decode against the page pool (the reference's
-    `_paged_slot_attention`, s == 1): write each row's K/V into its page,
+    """Slot forward against the page pool (the reference's
+    `_paged_slot_attention`): write each query's K/V into its page slot,
     then attend over the pages of `plan`; an int8 cache stores
     quantize_int8_rows of them, with their scales at the same slot of
-    the scale pools.  Returns [B, 1, H, hd]."""
-    if q.shape[2] != 1:
-        raise ValueError(f'paged slot decode takes one token per row, '
-                         f'got {q.shape[2]}')
+    the scale pools.  S = 1 is a decode step; S > 1 a speculative
+    verify (the pending token and the proposals) or a mixed step (a
+    prompt chunk, or a decode token and pad queries).  Returns
+    [B, S, H, hd]."""
     hd = q.shape[3]
     pk = cache.key[layer]
     pv = cache.value[layer]
-    k, v = k[:, :, 0, :].to(cfg.dtype), v[:, :, 0, :].to(cfg.dtype)
+    # [B, S, kvh, hd]: the layout of pool[phys, :, off, :] for [B, S]
+    # indices (the two advanced indices are not adjacent).
+    k = k.to(cfg.dtype).transpose(1, 2)
+    v = v.to(cfg.dtype).transpose(1, 2)
     scales = _layer_scales(cache, layer)
     if cache.key_scale is not None:
         k, ks = ga.quantize_int8_rows(k)
@@ -457,48 +493,51 @@ def paged_slot_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
 
 
 class ContigPlan(NamedTuple):
-    """Per-forward inputs of the one-token contiguous slot decode."""
-    rows: torch.Tensor      # [B]
-    write_pos: torch.Tensor  # [B] each row's write slot
+    """Per-forward inputs of a contiguous slot forward (S >= 1)."""
+    rows: torch.Tensor      # [B, 1]
+    pos: torch.Tensor       # [B, S] each query's write slot
+    keep: Optional[torch.Tensor]   # flat indices of the writes inside
+                                   # max_len (None: all of them)
     read_len: int
-    mask: torch.Tensor      # [B, 1, 1, read_len] bool visibility
+    mask: torch.Tensor      # [B, 1, S, read_len] bool visibility
 
 
-def contig_slot_plan(kv_mask: torch.Tensor, *, cfg: LlamaConfig,
-                     read_len: Optional[int]) -> ContigPlan:
-    """The reference's contiguous slot branch (`models/llama.py:580` on,
-    s == 1): each row writes at its highest revealed kv_mask slot (0 for
-    a row with none); visibility is kv_mask, and the sliding window by
-    slot index relative to the write slot; reads cover the first
-    read_len slots (not page-rounded: there are no pages)."""
+def contig_slot_plan(kv_mask: torch.Tensor, s: int = 1, *,
+                     cfg: LlamaConfig, read_len: Optional[int]
+                     ) -> ContigPlan:
+    """The reference's contiguous slot branch (`models/llama.py:580` on):
+    query j of a row writes at base + j (`_slot_positions`), writes past
+    max_len dropped (the reference's mode='drop'; finding them costs one
+    host sync a forward, at S > 1 only); visibility is `_slot_mask` over
+    the first read_len slots (not page-rounded: there are no pages)."""
     max_len = cfg.max_seq_len
-    dev = kv_mask.device
-    slots = torch.arange(max_len, device=dev)
-    write_pos = torch.where(kv_mask, slots, 0).amax(-1)
-    visible = kv_mask
-    if cfg.sliding_window is not None:
-        visible = visible & (slots[None, :] >= write_pos[:, None]
-                             - cfg.sliding_window + 1)
+    base, pos = _slot_positions(kv_mask, s)
+    keep = None
+    if s > 1:
+        keep = torch.nonzero((pos < max_len).flatten()).flatten()
     n = _read_len(read_len, max_len)
-    return ContigPlan(torch.arange(kv_mask.shape[0], device=dev), write_pos,
-                      n, visible[:, None, None, :n])
+    rows = torch.arange(kv_mask.shape[0], device=kv_mask.device)[:, None]
+    return ContigPlan(rows, pos, keep, n,
+                      _slot_mask(kv_mask, base, s, n, cfg.sliding_window))
 
 
 def contig_slot_attention(layer: int, q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, cache: SlotCache,
                           plan: ContigPlan, *,
                           cfg: LlamaConfig) -> torch.Tensor:
-    """One-token slot decode against the contiguous slot rows: write each
-    row's K/V (quantize_int8_rows of them for an int8 cache) at its write
+    """Slot forward against the contiguous slot rows: write each query's
+    K/V (quantize_int8_rows of them for an int8 cache) at its write
     slot, then the reference's read over the first read_len slots
     (`grouped_attention` or `quantized_grouped_attention`).  There is no
     kernel on this path, as in the reference, whose fused kernels need a
-    paged cache.  Returns [B, 1, H, hd]."""
-    if q.shape[2] != 1:
-        raise ValueError(f'slot decode takes one token per row, got '
-                         f'{q.shape[2]}')
-    k, v = k[:, :, 0, :].to(cfg.dtype), v[:, :, 0, :].to(cfg.dtype)
-    at = (plan.rows, slice(None), plan.write_pos, slice(None))
+    paged cache.  Returns [B, S, H, hd]."""
+    k = k.to(cfg.dtype).transpose(1, 2)        # [B, S, kvh, hd]
+    v = v.to(cfg.dtype).transpose(1, 2)
+    rows, pos = plan.rows.expand_as(plan.pos), plan.pos
+    if plan.keep is not None:
+        rows, pos = rows.flatten()[plan.keep], pos.flatten()[plan.keep]
+        k, v = k.flatten(0, 1)[plan.keep], v.flatten(0, 1)[plan.keep]
+    at = (rows, slice(None), pos, slice(None))
     if cache.key_scale is not None:
         k, ks = ga.quantize_int8_rows(k)
         v, vs = ga.quantize_int8_rows(v)
@@ -778,7 +817,8 @@ class Llama(nn.Module):
         if isinstance(cache, PagedCache):
             if kv_mask is None:
                 raise ValueError('paged slot decode needs kv_mask')
-            plan = slot_plan(cache, kv_mask, cfg=cfg, read_len=read_len)
+            plan = slot_plan(cache, kv_mask, tokens.shape[1], cfg=cfg,
+                             read_len=read_len)
 
             def attend(i, q, k, v):
                 return paged_slot_attention(i, q, k, v, cache, plan, cfg=cfg,
@@ -786,7 +826,8 @@ class Llama(nn.Module):
         elif isinstance(cache, SlotCache):
             if kv_mask is None:
                 raise ValueError('slot decode needs kv_mask')
-            plan = contig_slot_plan(kv_mask, cfg=cfg, read_len=read_len)
+            plan = contig_slot_plan(kv_mask, tokens.shape[1], cfg=cfg,
+                                    read_len=read_len)
 
             def attend(i, q, k, v):
                 return contig_slot_attention(i, q, k, v, cache, plan,

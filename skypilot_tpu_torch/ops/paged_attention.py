@@ -28,9 +28,12 @@ from skypilot_tpu_torch.ops import grouped_attention as ga
 
 # Kernel launches since the count was last set to 0, float pools and
 # int8 pools apart (chip_smoke.py reads and resets them around each
-# serving run).
+# serving run), and the same split by the queries a row, S (1: decode;
+# k + 1: a speculative verify; the mixed step's query width).
 launches = 0
 launches_int8 = 0
+launches_by_s: Dict[int, int] = {}
+launches_int8_by_s: Dict[int, int] = {}
 
 _SUPPORTED_D = (64, 128)
 _SUPPORTED_PS = (8, 16, 32)
@@ -123,7 +126,9 @@ def paged_decode_attention(q: torch.Tensor, page_key: torch.Tensor,
                            ) -> torch.Tensor:
     """Decode attention straight from the paged KV pools.
 
-    q:          [B, H, S, d] queries (S = 1 decode).
+    q:          [B, H, S, d] queries: S = 1 a decode step, S > 1 a
+                speculative verify window or a mixed prefill/decode step
+                (query s of a row sees what `mask[:, 0, s]` reveals).
     page_key /
     page_value: [n_pages, kvh, page_size, d] pools; page 0 is the null
                 page that unallocated table entries point at.
@@ -190,6 +195,9 @@ def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype,
         if not t.is_contiguous():
             raise ValueError(f'paged_decode_attention: {name} must be '
                              'contiguous')
+    # A view of the serving path's contiguous [B, 1, S, read_len] mask,
+    # built once a forward (models/llama.py `_slot_mask`); a copy only
+    # for a broadcast S.
     mask3 = mask[:, 0].expand(b, s, read_len).contiguous()
     if mask3.data_ptr() % 8:   # the kernel reads mask rows 8 bytes a load
         mask3 = mask3.clone()
@@ -213,6 +221,7 @@ def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype,
                  *tail)
         _build.check(err, 'paged_decode_launch')
         launches += 1
+        launches_by_s[s] = launches_by_s.get(s, 0) + 1
     else:
         fn = _build.launcher('paged_decode', _ARGTYPES_INT8,
                              'paged_decode_int8_launch')
@@ -220,4 +229,5 @@ def _launch(q, page_key, page_value, table, mask, *, scale, probs_dtype,
                  scales[0].data_ptr(), scales[1].data_ptr(), *tail)
         _build.check(err, 'paged_decode_int8_launch')
         launches_int8 += 1
+        launches_int8_by_s[s] = launches_int8_by_s.get(s, 0) + 1
     return out

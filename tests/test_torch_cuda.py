@@ -12,7 +12,11 @@ prefill at ragged bases with kv_mask cutting into the chunk, and each
 supported head dim and page size.  The decode kernel's split page walk:
 rows shorter than a chunk, a long row beside 1-position rows, rows that
 see nothing, S 4 masks under a window, f32/bf16/f16 q, chunks of 1 and
-3 pages, and calls back to back (its merge counters must be back at 0).
+3 pages, and calls back to back (its merge counters must be back at 0);
+at llama3-8b's heads, the serving path's multi-query widths: a
+speculative verify (S 5, also under a window), a mixed step (S 64), and
+a verify's pad queries reading table entries that point at the null
+page (which then holds other rows' pad writes: finite garbage).
 The dq pass: its 128-row blocks, 64-column ring and the tiles a consumer
 skips or masks.  f16 outputs hold to the bf16 bounds with u = 2^-11.
 Prefix sharing and int8 weights on the serving path: the paged decode
@@ -295,6 +299,60 @@ def test_paged_decode_split_edge_cases(dev, name, dtype, quant, chunk):
         before[0] + (not quant), before[1] + quant)
     assert got.shape == (len(ctxs), s, h, d) and got.dtype == dtype
     _check_decode(got, args, kw, dtype)
+
+
+# (contexts, S, window) at llama3-8b's heads (H 32, kvh 8, d 128, page 16).
+MULTI_QUERY = {
+    's5_verify': ([100, 700, 17, 2000], 5, None),
+    's64_mixed': ([64, 1000, 300, 1], 64, None),
+    's5_window': ([900, 40, 300], 5, 128),
+}
+
+
+@pytest.mark.parametrize('quant', [False, True], ids=['float', 'int8'])
+@pytest.mark.parametrize('name', list(MULTI_QUERY) + ['s5_pad_null'])
+def test_paged_decode_multi_query_serving_widths(dev, name, quant):
+    """Kernel 4 at the widths speculation and mixed batches give it.  In
+    's5_pad_null' each row's pages end at context + 2 (16 and 48), so its
+    queries 3 and 4 see positions whose table entries are the null page,
+    holding finite values."""
+    if name == 's5_pad_null':
+        g = torch.Generator().manual_seed(9)
+        ctxs, s = [14, 46], 5
+        n_read = 4
+        n_pages = len(ctxs) * n_read + 1
+        pk = torch.randn(n_pages, 8, 16, 128, generator=g)
+        pv = torch.randn(n_pages, 8, 16, 128, generator=g)
+        table = (torch.randperm(n_pages - 1, generator=g) + 1).reshape(
+            len(ctxs), n_read).to(torch.int32)
+        mask = torch.zeros(len(ctxs), 1, s, n_read * 16, dtype=torch.bool)
+        for i, c in enumerate(ctxs):
+            table[i, (c + 2) // 16:] = 0
+            for qi in range(s):
+                mask[i, 0, qi, :c + qi] = True
+        q = torch.randn(len(ctxs), 32, s, 128, generator=g)
+        scales = {}
+        if quant:
+            pk, ks = _quantized(pk, False)
+            pv, vs = _quantized(pv, False)
+            scales = dict(key_scale=ks.to(dev), value_scale=vs.to(dev))
+        else:
+            pk, pv = pk.bfloat16(), pv.bfloat16()
+        args = [q.to(dev, torch.bfloat16), pk.to(dev), pv.to(dev),
+                table.to(dev), mask.to(dev)]
+    else:
+        ctxs, s, window = MULTI_QUERY[name]
+        args, scales = _split_case(dev, torch.bfloat16, ctxs=ctxs, s=s,
+                                   d=128, ps=16, h=32, kvh=8, quant=quant,
+                                   seed=11, window=window)
+    kw = dict(scale=128 ** -0.5, **scales)
+    before = dict(pa.launches_int8_by_s if quant else pa.launches_by_s)
+    got = pa.paged_decode_attention(*args, probs_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    after = pa.launches_int8_by_s if quant else pa.launches_by_s
+    assert after.get(s, 0) == before.get(s, 0) + 1
+    assert got.shape == (len(ctxs), s, 32, 128)
+    _check_decode(got, args, kw, torch.bfloat16)
 
 
 @pytest.mark.parametrize('quant', [False, True], ids=['float', 'int8'])
