@@ -55,7 +55,9 @@ Phases, any failure exits non-zero:
                at d 64).
   4. serve   - start the port's InferenceServer on llama3-8b at full width
                and depth (random bf16 weights from a seed; page 16,
-               prefill chunk 512, 8 slots, max_seq_len 4096), reset every
+               prefill chunk 512, 8 slots, max_seq_len 4096; like every
+               server below, with its default decode pipeline: pipelined,
+               the S = 1 decode forward replayed from CUDA graphs), reset every
                kernel's launch count, POST 8 concurrent greedy /generate
                requests (prompts of 40-3000 tokens, 32 new tokens) and 2
                sampled ones, and read the counts: both float branches
@@ -127,6 +129,20 @@ Phases, any failure exits non-zero:
                step's logits (decode rows, and a prompt row at its last
                token), kernels vs plain, bf16 and int8 caches (limits as
                serve_spec's).
+     serve_async - the default server (pipelined, decode graphs) against
+               --no-async-pipeline on the same weights, bf16 and int8
+               caches: 8 greedy requests (40-1200 tokens) each, equal
+               tokens; kernel 4's launches over the four bursts (replays
+               count the launches captured in their graphs); HTTP decode
+               tokens/s of both; the pipelined engine must have overlapped
+               a step and replayed a graph.  Then, on the pipelined
+               engine: a decode step of 8 rows (64-4000 tokens) replayed
+               against the eager forward within GRAPH_LOGITS_GAP; the
+               graphs captured, their capture seconds and pool bytes; and
+               a decode step at batch 8 synchronous and eager, pipelined
+               and eager, pipelined with graphs (wall ms, profiler off),
+               and with graphs under the profiler (busy, idle share,
+               kernels and host launch calls a step).
      invariants - at serve_unpaged's size (f32, 4 layers; kernel 4 at f32,
                prefill 'xla'): speculation with a draft of the target's
                config and seed, and mixed batches, must give plain decode's
@@ -149,7 +165,8 @@ Phases, any failure exits non-zero:
                source, the TPU kernel it replaces, its launches on its
                path (serve phase, serve_int8 phase, train phase) and in
                every phase ("launches_by_phase"; kernel 4 also by S in
-               serve_spec and serve_mixed, "launches_by_s"), error, times
+               serve_spec, serve_mixed and serve_async, "launches_by_s"),
+               error, times
                and bound (kernel 4's S 5 and S 64 cases in `cases`);
                the int8 entries carry "branch": "quant".
                The prefill entry's times and bound are the base-1536
@@ -164,6 +181,7 @@ The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -1029,30 +1047,61 @@ def _serve_repeat_and_rates(url: str, eng, rng, reqs, out,
     t0 = time.perf_counter()
     _post(url + '/generate', long_req)
     prefill_tps = 3000 / (time.perf_counter() - t0)
-    # Decode throughput at batch 8: 33- minus 1-token runs, each over 8
-    # new prompts of 64 tokens, so that both prefill the same work.
-    batches = [[rng.randint(0, vocab, 64).tolist() for _ in range(8)]
-               for _ in range(2)]
-    t0 = time.perf_counter()
-    _post(url + '/generate', dict(prompt_ids=batches[0], max_new_tokens=1))
-    t1 = time.perf_counter()
-    _post(url + '/generate', dict(prompt_ids=batches[1], max_new_tokens=33))
-    t2 = time.perf_counter()
     if eng.prefix_hit_pages != hits0:
         raise AssertionError(f'serve[{tag}]: the timed requests shared pages')
-    decode_tps = 8 * 32 / ((t2 - t1) - (t1 - t0))
+    decode_tps = _decode_rate(url, eng, rng, tag)
     log(f'serve[{tag}]: prefill {prefill_tps:.1f} tokens/s (one '
         f'3000-token prompt over HTTP, first token included); decode '
         f'{decode_tps:.1f} tokens/s at batch 8 (33- minus 1-token runs)')
     return dict(prefill_tps=prefill_tps, decode_tps=decode_tps)
 
 
-def decode_busy_ms(eng, steps: int = 16):
-    """Device busy ms of one decode step at batch 8 (8 live slots over
-    64-token prompts): the union of the kernels' intervals in a
-    torch.profiler trace of `steps` steps, as scripts/port_profile.py's
-    decode window measures it.  None when the trace holds no device
-    event."""
+def _decode_rate(url: str, eng, rng, tag: str, new: int = 33) -> float:
+    """Decode tokens/s at batch 8 over HTTP: `new`- minus 1-token runs,
+    each over 8 new prompts of 64 tokens (so that both prefill the same
+    work and share no page)."""
+    vocab = eng.config.vocab_size
+    hits0 = eng.prefix_hit_pages
+    batches = [[rng.randint(0, vocab, 64).tolist() for _ in range(8)]
+               for _ in range(2)]
+    t0 = time.perf_counter()
+    _post(url + '/generate', dict(prompt_ids=batches[0], max_new_tokens=1))
+    t1 = time.perf_counter()
+    _post(url + '/generate', dict(prompt_ids=batches[1], max_new_tokens=new))
+    t2 = time.perf_counter()
+    if eng.prefix_hit_pages != hits0:
+        raise AssertionError(f'serve[{tag}]: the timed requests shared pages')
+    return 8 * (new - 1) / ((t2 - t1) - (t1 - t0))
+
+
+# The host calls that launch device work, as torch.profiler names them: a
+# kernel launch (PyTorch's, cuBLAS's, the port's kernels') or a graph's.
+LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+                'cuLaunchKernelEx', 'cudaGraphLaunch')
+# The decode loop's modes: (async_pipeline, CUDA graphs).
+DECODE_MODES = {'sync_eager': (False, False), 'async_eager': (True, False),
+                'async_graphs': (True, True)}
+
+
+def set_decode_mode(eng, mode: str, graphs) -> None:
+    """Put the engine in one of DECODE_MODES (the step in flight joined
+    first); `graphs` is the engine's own DecodeGraphs, switched off for
+    the eager modes.  A measurement seam: the engine has no knob for it."""
+    eng._fence()  # pylint: disable=protected-access
+    eng.async_pipeline, use_graphs = DECODE_MODES[mode]
+    eng._graphs = graphs if use_graphs else None  # pylint: disable=protected-access
+
+
+def decode_window(eng, steps: int = 16, profile: bool = True) -> dict:
+    """One decode step at batch 8 (8 live slots over 64-token prompts),
+    over a torch.profiler trace of `steps` steps, as
+    scripts/port_profile.py's decode window measures it: wall ms a step
+    (host clock, the device synchronized at the end), device busy ms (the
+    union of the kernels' intervals; None when the trace holds no device
+    event), the idle share, device kernels a step and host launch calls
+    a step (LAUNCH_CALLS).  Without `profile` only the wall ms, with the
+    profiler off (an eager step leaves some 5000 events in a trace, which
+    take seconds to read)."""
     from skypilot_tpu_torch.infer import engine as engine_lib
     rng = np.random.RandomState(9)
     for _ in range(8):
@@ -1063,14 +1112,25 @@ def decode_busy_ms(eng, steps: int = 16):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with (torch.profiler.profile(activities=acts) if profile
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
     eng.run_until_idle()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+    if not profile:
+        return dict(wall_ms=wall)
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return union_us(spans) / steps / 1e3 if spans else None
+    busy = union_us(spans) / steps / 1e3 if spans else None
+    return dict(wall_ms=wall, busy_ms=busy,
+                idle=None if busy is None else 1.0 - busy / wall,
+                kernels=len(spans) / steps,
+                host_launches=sum(e.name in LAUNCH_CALLS
+                                  for e in events) / steps)
 
 
 def union_us(spans) -> float:
@@ -1128,7 +1188,7 @@ def phase_serve(dev) -> dict:
     _serve_repeat_and_rates(url, eng, rng, reqs, out, 'auto')
     srv.shutdown()
     http_thread.join(timeout=30)
-    busy = decode_busy_ms(eng)
+    busy = decode_window(eng)['busy_ms']
     log(f'serve: decode step at batch 8, device busy {busy} ms; weights '
         f'{weight_bytes(eng)} bytes')
     # First decode step of one request: kernels vs plain versions.
@@ -1275,7 +1335,7 @@ def phase_serve_wint8(dev, bf16: dict) -> dict:
     rates = _serve_repeat_and_rates(url, eng, rng, reqs, out, 'wint8')
     srv.shutdown()
     http_thread.join(timeout=30)
-    busy = decode_busy_ms(eng)
+    busy = decode_window(eng)['busy_ms']
     log(f'serve_wint8: decode step at batch 8, device busy {busy} ms '
         f'against {bf16["decode_busy_ms"]} ms with bf16 weights')
     logits = first_step_check(eng, bf16['prompt'], 'serve_wint8')
@@ -1693,10 +1753,14 @@ def mixed_check(eng, vocab: int, limit: float, tag: str) -> float:
                        for n in (40, 100, 300, 700, 1200, 2000)], 256)
     rids.append(eng.submit(rng.randint(0, vocab, 4 * MIX_BUDGET + 37)
                            .tolist()))
+    # Each step joined at once, so that the pending's cursor counts the
+    # chunk of the step in flight.
     eng.step()
+    eng._fence()  # pylint: disable=protected-access
     pend = eng._prefills[0]  # pylint: disable=protected-access
     while pend.true_len - pend.done > MIX_BUDGET:
         eng.step()
+        eng._fence()  # pylint: disable=protected-access
     fused, rows = eng.mixed_logits('fused')
     plain, _ = eng.mixed_logits('plain')
     gaps = [_logit_gap(fused[i], plain[i]) for i in rows]
@@ -1999,6 +2063,134 @@ def phase_serve_mixed(dev) -> dict:
                 dedicated_ms=ded_ms)
 
 
+# serve_async: 8 greedy requests, served by the default (pipelined, decode
+# graphs) server and by --no-async-pipeline on the same weights.
+ASYNC_LENS = (40, 100, 200, 350, 500, 700, 900, 1200)
+# Replayed decode logits against the eager forward's: the same kernels in
+# the same order on the same inputs (observed bit for bit on an NVIDIA
+# H100, bf16 and int8 caches).
+GRAPH_LOGITS_GAP = 0.0
+# Steps of a decode window of serve_async.
+ASYNC_WINDOW_STEPS = 8
+# serve_async's HTTP decode rate: 129- minus 1-token runs.  With decode
+# graphs a step takes some 12 ms, and the decode loop's 50 ms idle poll
+# can land in either run: 128 steps keep it under 5% of the difference.
+ASYNC_RATE_NEW = 129
+
+
+def graph_check(eng, vocab: int, tag: str) -> float:
+    """The next decode step of 8 live requests (64-4000 tokens: reads of
+    512 to 4096 positions) replayed from its CUDA graph against the eager
+    forward, kernels both: max |diff| over max |logit| within
+    GRAPH_LOGITS_GAP."""
+    rng = np.random.RandomState(22)
+    rids = _live(eng, [rng.randint(0, vocab, n).tolist()
+                       for n in (64, 300, 700, 1200, 1800, 2500, 3200,
+                                 4000 - SERVE_NEW)], SERVE_NEW)
+    rows = [i for i, s in enumerate(eng._slots) if s is not None]  # pylint: disable=protected-access
+    eager = eng.decode_logits('fused')[rows]
+    replay = eng.decode_logits('fused', graph=True)[rows]
+    gap = _logit_gap(replay, eager)
+    log(f'{tag}: a decode step of {len(rows)} rows replayed from its CUDA '
+        f'graph against the eager forward: max abs diff over max |logit| '
+        f'{gap} (limit {GRAPH_LOGITS_GAP}); graphs {eng.graph_info()}')
+    _drop(eng, rids)
+    if not gap <= GRAPH_LOGITS_GAP:
+        raise AssertionError(f'{tag}: replayed logits differ from eager')
+    return gap
+
+
+def phase_serve_async(dev, card: str) -> dict:
+    """The decode pipeline at llama3-8b width, bf16 and int8 caches: the
+    default server (pipelined, the S = 1 decode forward replayed from CUDA
+    graphs) against --no-async-pipeline on the same weights, 8 greedy
+    requests each, the tokens equal; every kernel-4 launch counted over
+    the four bursts (each count set to 0 just before a burst and read
+    just after; replays count the launches captured in their graphs);
+    HTTP decode tokens/s of both (ASYNC_RATE_NEW); on the pipelined
+    engine the graphs captured, their capture seconds and pool bytes, the
+    replay against the eager forward (`graph_check`), and a decode step
+    at batch 8 in each of DECODE_MODES (wall ms, profiler off), and with
+    graphs under the profiler (device busy ms, idle share, kernels and
+    host launch calls a step)."""
+    launches: dict = {}
+    by_s = {'float': {}, 'int8': {}}
+    out = {}
+    for kv_cache_dtype in ('auto', 'int8'):
+        streams, rates = {}, {}
+        for pipelined in (False, True):
+            tag = (f'serve_async[{kv_cache_dtype}, '
+                   f'{"async" if pipelined else "sync"}]')
+            t_server = time.perf_counter()
+            srv, http_thread, url = _start_server(
+                dev, kv_cache_dtype, async_pipeline=pipelined)
+            eng = srv.engine
+            vocab = eng.config.vocab_size
+            rng = np.random.RandomState(21)
+            reqs = [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
+                         max_new_tokens=SERVE_NEW, temperature=0.0)
+                    for n in ASYNC_LENS]
+            _reset_launch_counts()
+            streams[pipelined], burst_s = _post_all(url, reqs)
+            counts, runs = _launch_counts(), _by_s()
+            _check_branches(counts, kv_cache_dtype, tag)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            for branch, c in runs.items():
+                for q, n in c.items():
+                    by_s[branch][q] = by_s[branch].get(q, 0) + n
+            rates[pipelined] = _decode_rate(url, eng, rng, tag,
+                                            ASYNC_RATE_NEW)
+            pipe = eng.pipeline_info()
+            srv.shutdown()
+            http_thread.join(timeout=30)
+            log(f'{tag}: {len(reqs)} greedy requests in {burst_s:.2f}s; '
+                f'launches {counts}, by S {runs}; HTTP decode '
+                f'{rates[pipelined]:.1f} tokens/s at batch 8 '
+                f'({ASYNC_RATE_NEW}- minus 1-token runs); pipeline '
+                f'{pipe}; graphs {eng.graph_info()}; '
+                f'{time.perf_counter() - t_server:.1f}s since the server '
+                'was started')
+            if pipelined != (pipe['mode'] == 'async'):
+                raise AssertionError(f'{tag}: pipeline {pipe}')
+            if pipelined:
+                graphs = eng._graphs  # pylint: disable=protected-access
+                if not (pipe['steps_overlapped'] > 0 and graphs.replays > 0):
+                    raise AssertionError(f'{tag}: no step overlapped or no '
+                                         'graph replayed')
+                out[kv_cache_dtype] = dict(
+                    graphs=eng.graph_info(),
+                    graph_gap=graph_check(eng, vocab, tag), modes={})
+                modes = out[kv_cache_dtype]['modes']
+                for mode in DECODE_MODES:
+                    set_decode_mode(eng, mode, graphs)
+                    modes[mode] = decode_window(eng, ASYNC_WINDOW_STEPS,
+                                                profile=False)
+                m = decode_window(eng, ASYNC_WINDOW_STEPS)
+                log(f'{tag}: decode step at batch 8 ({card}), wall ms, '
+                    f'profiler off: ' + ', '.join(
+                        f'{mode} {modes[mode]["wall_ms"]:.3f}'
+                        for mode in DECODE_MODES) + '; async_graphs with '
+                    f'the profiler on: wall {m["wall_ms"]:.3f} ms, device '
+                    f'busy {m["busy_ms"]} ms, idle share {m["idle"]}, '
+                    f'{m["kernels"]} kernels and {m["host_launches"]} host '
+                    f'launch calls a step (scripts/port_profile.py profiles '
+                    f'all three)')
+                modes['async_graphs_profiled'] = m
+                del graphs
+            del srv, eng
+            _free()
+        if streams[True] != streams[False]:
+            raise AssertionError(f'serve_async[{kv_cache_dtype}]: pipelined '
+                                 'tokens differ from the synchronous loop')
+        log(f'serve_async[{kv_cache_dtype}]: pipelined greedy tokens equal '
+            f'to --no-async-pipeline\'s ({len(ASYNC_LENS) * SERVE_NEW} '
+            f'tokens); HTTP decode tokens/s at batch 8, sync '
+            f'{rates[False]:.1f}, async {rates[True]:.1f}')
+        out[kv_cache_dtype]['decode_tps'] = rates
+    return dict(launches=launches, by_s=by_s, **out)
+
+
 def _launch_counts() -> dict:
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import paged_attention as pa
@@ -2164,6 +2356,9 @@ def main() -> int:
     mixed = phase_serve_mixed(dev)
     by_phase['serve_mixed'] = mixed['launches']
     lap('serve_mixed')
+    pipelined = phase_serve_async(dev, card)
+    by_phase['serve_async'] = pipelined['launches']
+    lap('serve_async')
     phase_invariants(dev)
     lap('invariants')
     by_phase['train'] = phase_train(dev)
@@ -2193,11 +2388,13 @@ def main() -> int:
             launches_by_phase={p: c[name] for p, c in by_phase.items()},
             # By S in each run of the two phases; 'int8_check' is the
             # int8 cache's kernels-vs-plain check, not the main path.
-            **({'launches_by_s': {
+            **({'launches_by_s': dict({
                 phase: {m: c['int8' if name.endswith('_int8') else 'float']
                         for m, c in runs['by_s'].items()}
                 for phase, runs in (('serve_spec', spec),
-                                    ('serve_mixed', mixed))}}
+                                    ('serve_mixed', mixed))},
+                serve_async=pipelined['by_s'][
+                    'int8' if name.endswith('_int8') else 'float'])}
                if name.startswith('paged_decode') else {}),
             **({'branch': 'quant'} if name.endswith('_int8') else {}),
             **kernels[name]))

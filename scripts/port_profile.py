@@ -8,8 +8,15 @@ weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
 4096, the CUDA kernels) and profiles five windows with torch.profiler:
 
   prefill - one 3000-token prompt: its six 512-token chunks and the
-            decode step that emits its token;
-  decode  - 16 decode steps at batch 8 (8 live slots, 64-token prompts);
+            decode step that emits its token (the engine's default decode
+            loop: pipelined, the S = 1 decode forward replayed from CUDA
+            graphs; one such prompt first, outside the window, so that
+            the window captures no graph);
+  decode_sync_eager, decode_async_eager, decode_async_graphs - 16 decode
+            steps at batch 8 (8 live slots, 64-token prompts) in each of
+            chip_smoke.DECODE_MODES: the synchronous loop with the eager
+            forward, the pipelined loop with the eager forward, and the
+            pipelined loop replaying the decode graphs (the default);
   prefill_int8, decode_int8 - the same two with the engine freed and
             rebuilt with an int8 KV cache (kv_cache_dtype='int8');
   prefill_wint8, decode_wint8 - the same two with int8 weights
@@ -21,11 +28,13 @@ weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
 For each window it prints one JSON line: host wall time per step (host
 clock around work that ends in a device synchronize), device busy time
 (the union of the kernels' intervals in the trace), the device's idle
-share, the attention kernels' share, and the kernels that took the most
-device time.  With --trace-dir it also writes each window's Chrome
-trace there; --windows picks some of serve (prefill, decode),
-serve_int8 (their int8-cache twins), serve_wint8 (their int8-weight
-twins) and train (default: all four).  Needs one NVIDIA card.
+share, the attention kernels' share, the device kernels and the host's
+launch calls (kernel launches and graph launches) a step, and the
+kernels that took the most device time.  With --trace-dir it also
+writes each window's Chrome trace there; --windows picks some of serve
+(prefill, the three decode modes), serve_int8 (their int8-cache twins),
+serve_wint8 (their int8-weight twins) and train (default: all four).
+Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -73,6 +82,8 @@ def _summary(name, prof, wall_s, steps):
         'device_idle_share': (1.0 - busy / wall_us) if events else None,
         'attention_kernel_share_of_busy': (attn / busy) if busy else None,
         'kernel_launches_per_step': len(events) / steps,
+        'host_launches_per_step': sum(
+            e.name in chip_smoke.LAUNCH_CALLS for e in prof.events()) / steps,
         'top_kernels_ms_per_step': [
             [k[:90], v / steps / 1e3] for k, v in by_name.most_common(8)],
     }
@@ -96,19 +107,26 @@ def _serve_windows(window, tag, kv_cache_dtype, quantize=None):
             steps += 1
         return steps
 
+    # A first 3000-token prompt captures the decode graph of its read
+    # bucket outside the window (a capture happens once a bucket).
+    prefill()
     window('prefill' + tag, prefill)
-    for _ in range(8):
-        eng.submit(rng.randint(0, vocab, 64).tolist(),
-                   engine_lib.SamplingConfig(max_new_tokens=40))
-    eng.step()      # admits and prefills all 8, first decode step
+    graphs = eng._graphs  # pylint: disable=protected-access
 
     def decode():
         for _ in range(16):
             eng.step()
         return 16
 
-    window('decode' + tag, decode)
-    eng.run_until_idle()
+    for mode in chip_smoke.DECODE_MODES:
+        chip_smoke.set_decode_mode(eng, mode, graphs)
+        for _ in range(8):
+            eng.submit(rng.randint(0, vocab, 64).tolist(),
+                       engine_lib.SamplingConfig(max_new_tokens=40))
+        eng.step()      # admits and prefills all 8, first decode step
+        eng.step()
+        window(f'decode_{mode}' + tag, decode)
+        eng.run_until_idle()
 
 
 def _train_window(window):

@@ -51,7 +51,21 @@ reference's default, page_size 0) and paged, and of its request-level
     at least 2; with speculation, the k + 1 verify window), written
     straight into the slot's cache row or pages; decode rows feed their
     token at query 0 and commit one token.  A plain decode step is the
-    same step function at S = 1 with no prompt riding it.
+    same step function at S = 1 with no prompt riding it;
+  - with async_pipeline (the default, as the reference's) each tick is
+    double-buffered: the host front (admission, prefill chunks) runs
+    while the step dispatched last tick runs on the device, then that
+    step is joined and its tokens committed, then the next step is
+    dispatched (`_step_async`).  There is no fetch thread: a dispatch
+    enqueues a non-blocking copy of the step's tokens into pinned host
+    memory and records a CUDA event behind it, and the join waits on
+    the event.  async_pipeline=False is the synchronous tick
+    (`_step_sync`);
+  - on the card, with the paged-decode kernel, the S = 1 paged decode
+    forward (no prompt riding the step) is replayed from one CUDA graph
+    per read bucket (infer/graphs.py), the counterpart of the
+    reference's compiled step; verify and mixed steps, the unpaged
+    cache and a draft model's steps run eagerly.
 `InferenceEngine` prefills a whole batch of right-padded prompts at once
 into a contiguous cache and decodes it in lockstep; it runs no kernel,
 as the reference's does not.
@@ -62,13 +76,14 @@ read in plain PyTorch ('xla'); `resolve_kernels` picks, as the
 reference's table does: 'auto' is 'fused' on CUDA with a paged cache,
 else 'xla', and 'fused' without a paged cache is a ValueError.
 
-Not ported yet (later slices): the async pipeline (the port steps
-synchronously: one fetch of the committed tokens a step), disaggregated
-handoff, live migration, the host-RAM tier, recovery, metrics and
-traces.
+Not ported yet (later slices): disaggregated handoff, live migration,
+the host-RAM tier, recovery, metrics and traces.
 
 Thread model: submit()/cancel()/wait() are thread-safe; step() must be
-driven by ONE thread (the server's decode loop).
+driven by ONE thread (the server's decode loop).  The readers of engine
+state (`decode_logits`, `mixed_logits`, `verify_logits`,
+`speculation_info`, `allocator_leak_report`) take the step lock and
+join the step in flight first, so they may run on another thread.
 """
 from __future__ import annotations
 
@@ -84,6 +99,7 @@ import torch
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch import models as models_lib
 from skypilot_tpu_torch.infer import failures
+from skypilot_tpu_torch.infer import graphs as graphs_lib
 from skypilot_tpu_torch.infer import paging as paging_lib
 from skypilot_tpu_torch.infer import speculative as spec_lib
 from skypilot_tpu_torch.models.llama import (PagedCache, PrefillCache,
@@ -302,6 +318,16 @@ def build_model(model: str, params: Optional[Mapping[str, torch.Tensor]],
     return net, config
 
 
+def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device`.  To a card it goes through
+    pinned memory and a non-blocking copy: a copy from pageable memory
+    waits for the stream, and so for the step in flight."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != 'cuda':
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 # -- paged cache ops (in place) ----------------------------------------------
 def _kv_pairs(a: Any, b: Any) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """(a's, b's) K, V and, for an int8 cache, scale tensors, paired."""
@@ -324,8 +350,8 @@ def paged_insert(cache: PagedCache, cache1: PrefillCache,
     null page)."""
     ps = cache.key.shape[3]
     n_used = int(np.count_nonzero(table_row))
-    phys = torch.as_tensor(table_row[copy_start_page:n_used],
-                           dtype=torch.long, device=cache.key.device)
+    phys = to_device(table_row[copy_start_page:n_used].astype(np.int64),
+                     cache.key.device)
     for pool, src in _kv_pairs(cache, cache1):
         L, _, kvh, s, d = src.shape
         content = src[:, 0].reshape(L, kvh, s // ps, ps, d)
@@ -343,8 +369,8 @@ def hydrate(cache1: PrefillCache, cache: PagedCache, table_row: np.ndarray,
     the suffix chunks attend to the shared prefix without prefilling it
     again.  Positions past the prefix are left as they are: each is
     written by a suffix chunk before a row reads it, or masked off."""
-    phys = torch.as_tensor(table_row[:shared_pages], dtype=torch.long,
-                           device=cache.key.device)
+    phys = to_device(table_row[:shared_pages].astype(np.int64),
+                     cache.key.device)
     for pool, dst in _kv_pairs(cache, cache1):
         L, _, kvh, _, d = dst.shape
         dst[:, 0, :, :shared_len] = pool[:, phys].transpose(1, 2).reshape(
@@ -362,8 +388,8 @@ def slot_insert(cache: SlotCache, cache1: PrefillCache, slot: int) -> None:
 
 def set_table(cache: PagedCache, table_row: np.ndarray, slot: int) -> None:
     """Write a slot's block-table row (in place)."""
-    cache.table[slot] = torch.as_tensor(table_row, dtype=torch.int32,
-                                        device=cache.table.device)
+    cache.table[slot] = to_device(table_row.astype(np.int32),
+                                  cache.table.device)
 
 
 def clear_table(cache: PagedCache, slot: int) -> None:
@@ -414,6 +440,39 @@ class _PendingPrefill:
     mixed: bool = False
 
 
+class _InflightStep:
+    """One dispatched decode step whose tokens are not committed yet (the
+    reference's `_InflightStep`, without its metrics and chaos points).
+
+    The dispatch fills every field: `host` is the step's tokens ([B], or
+    a verify's [B, k + 1] tokens with the counts as a last column) on the
+    host, complete once `event` has passed (a CUDA event recorded behind
+    a non-blocking copy into pinned memory; None on the CPU, where the
+    tensor is complete when the dispatch returns).  The consume half, on
+    the thread that drives step(), commits them.  `rids` snapshots each
+    occupied slot's request at dispatch, so a slot canceled or evicted
+    before the join takes none of the step's tokens; `mix` lists the
+    (pending, chunk length) of each prompt that rode the step, advanced
+    at consume time."""
+
+    __slots__ = ('mode', 'host', 'event', 'occupied', 'rids', 'mix',
+                 'proposed', 't_enter', 't_dispatched')
+
+    def __init__(self, mode: str, host: torch.Tensor, event: Any,
+                 occupied: List[int], rids: List[int],
+                 mix: List[Tuple['_PendingPrefill', int]], t_enter: float,
+                 proposed: int = 0) -> None:
+        self.mode = mode                  # 'plain' | 'mixed' | 'spec'
+        self.host = host
+        self.event = event
+        self.occupied = occupied
+        self.rids = rids
+        self.mix = mix
+        self.proposed = proposed          # a verify's proposed tokens
+        self.t_enter = t_enter
+        self.t_dispatched = time.perf_counter()
+
+
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over the KV-cache model: a
     contiguous slot cache by default (page_size 0), a page pool with
@@ -440,6 +499,7 @@ class ContinuousBatchingEngine:
                  draft_params: Optional[Mapping[str, torch.Tensor]] = None,
                  draft_overrides: Optional[Dict[str, Any]] = None,
                  prefill_mix_budget: int = 0,
+                 async_pipeline: bool = True,
                  device: DeviceLike = 'cuda') -> None:
         if spec_k < 0:
             raise ValueError(f'spec_k must be >= 0, got {spec_k}')
@@ -522,6 +582,18 @@ class ContinuousBatchingEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_committed = 0
+        # The decode pipeline: with async_pipeline each tick dispatches
+        # step N + 1 after joining step N, so the host front overlaps the
+        # step in flight; depth is exactly 1 (`_inflight`).  The step lock
+        # serialises step() with the readers of engine state.
+        self.async_pipeline = bool(async_pipeline)
+        self._inflight: Optional[_InflightStep] = None
+        self._pipe_steps_overlapped = 0
+        self._step_lock = threading.RLock()
+        # The S = 1 paged decode forward, replayed from CUDA graphs.
+        self._graphs: Optional[graphs_lib.DecodeGraphs] = None
+        if self.device.type == 'cuda' and self.decode_kernel == 'fused':
+            self._graphs = graphs_lib.DecodeGraphs(self.model, self._cache)
 
     # -- request intake ----------------------------------------------------
     def _page_need(self, true_len: int,
@@ -639,18 +711,21 @@ class ContinuousBatchingEngine:
 
     def abort(self, error: BaseException) -> None:
         """Fatal failure: stop serving, fail every waiter fast, and hand
-        in-flight pages back so page accounting ends clean."""
-        with self._submit_lock:
-            self._fatal = error
-            self._queue.clear()
-            events = list(self._events.values())
-        for i, s in enumerate(self._slots):
-            if s is not None:
-                self._release_pages(s.pages)
-                self._slots[i] = None
-        for p in self._prefills:
-            self._release_pages(p.pages)
-        self._prefills = []
+        in-flight pages back so page accounting ends clean; the step in
+        flight is abandoned, never committed."""
+        with self._step_lock:
+            self._pipeline_abandon()
+            with self._submit_lock:
+                self._fatal = error
+                self._queue.clear()
+                events = list(self._events.values())
+            for i, s in enumerate(self._slots):
+                if s is not None:
+                    self._release_pages(s.pages)
+                    self._slots[i] = None
+            for p in self._prefills:
+                self._release_pages(p.pages)
+            self._prefills = []
         for e in events:
             e.set()
 
@@ -733,16 +808,16 @@ class ContinuousBatchingEngine:
 
     def _admit_mixed(self, pending: _PendingPrefill) -> None:
         """Mixed-batch admission: no prefill cache and no insert; the
-        prompt's chunks ride decode steps (`_mixed_step`, `_spec_step`)
-        and write straight into the slot's cache row or pool pages.  This
-        only reserves the slot and resets its kv-mask row; a shared prefix
-        arrives revealed (its pages are in the pool), so nothing is
-        hydrated.  The slot's block-table row is written when its first
-        chunk rides (`_mix_rows`): until then the row's table is the null
-        page's, so a step in which it rides no chunk writes its pad
-        queries there and not into the shared prefix's last page (the
-        reference writes the table here, and such a step writes over the
-        prefix's last position)."""
+        prompt's chunks ride decode steps (`_dispatch_mixed`,
+        `_dispatch_spec`) and write straight into the slot's cache row or
+        pool pages.  This only reserves the slot and resets its kv-mask
+        row; a shared prefix arrives revealed (its pages are in the pool),
+        so nothing is hydrated.  The slot's block-table row is written
+        when its first chunk rides (`_mix_rows`): until then the row's
+        table is the null page's, so a step in which it rides no chunk
+        writes its pad queries there and not into the shared prefix's
+        last page (the reference writes the table here, and such a step
+        writes over the prefix's last position)."""
         pending.mixed = True
         self._kv_mask[pending.slot_idx] = False
         self._kv_mask[pending.slot_idx, :pending.shared_len] = True
@@ -757,8 +832,8 @@ class ContinuousBatchingEngine:
             else pending.pad
         start = pending.done
         size = min(chunk, pending.pad - start)
-        tokens = torch.as_tensor(pending.tokens[:, start:start + size],
-                                 device=self.device)
+        tokens = to_device(pending.tokens[:, start:start + size],
+                           self.device)
         positions = torch.arange(start, start + size,
                                  device=self.device)[None]
         read_len = None
@@ -975,24 +1050,33 @@ class ContinuousBatchingEngine:
         """A step's inputs from host vectors `h`: the named ones on the
         device, the filter arguments, the generators and the read window
         of a step whose last query sits at live - 1."""
-        dev = self.device
-        out = {name: torch.as_tensor(h[name], device=dev) for name in names}
+        out = {name: to_device(h[name], self.device) for name in names}
         out.update(filt=self._filter_args(h['temps'], h['top_ks'],
                                           h['top_ps']),
                    generators=h['generators'], bucket=self._read_bucket(live))
         return out
 
     @torch.no_grad()
-    def decode_logits(self, kernel: str) -> torch.Tensor:
+    def decode_logits(self, kernel: str, graph: bool = False
+                      ) -> torch.Tensor:
         """The logits [B, V] the next decode step computes for the
-        occupied slots, with `kernel` ('fused' or 'xla'), committing
-        nothing: the step rewrites the same K/V when it runs.  For holding
-        the kernels against their plain versions on the serving path."""
-        occupied = [i for i, s in enumerate(self._slots) if s is not None]
-        if not occupied:
-            raise RuntimeError('no occupied slot to decode')
-        return self._mixed_forward(self._mixed_inputs(occupied, [], 1),
-                                   kernel)[1]
+        occupied slots, with `kernel` ('fused', 'plain' or 'xla'),
+        committing nothing: the step rewrites the same K/V when it runs.
+        With `graph` they come from the replay of the read bucket's CUDA
+        graph, as a step's do (kernel 'fused' on the card only; raises
+        elsewhere), else from the eager forward.  For holding the kernels
+        against their plain versions, and the replay against the eager
+        forward, on the serving path.  Joins the step in flight first."""
+        with self._step_lock:
+            self._pipeline_join()
+            occupied, _ = self._work()
+            if not occupied:
+                raise RuntimeError('no occupied slot to decode')
+            if graph and (self._graphs is None or kernel != 'fused'):
+                raise ValueError('decode graphs run the fused kernels on '
+                                 'the card only')
+            return self._mixed_forward(self._mixed_inputs(occupied, [], 1),
+                                       kernel, graph=graph)[1]
 
     # -- mixed prefill/decode batches -----------------------------------
     def _mix_assignments(self, mixed: List[_PendingPrefill],
@@ -1050,9 +1134,8 @@ class ContinuousBatchingEngine:
         use_top_p = bool((top_ps < 1.0).any())
         dev = self.device
         return dict(
-            temps=torch.as_tensor(temps, device=dev),
-            top_ks=torch.as_tensor(top_ks, device=dev),
-            top_ps=torch.as_tensor(top_ps, device=dev), max_k=max_k,
+            temps=to_device(temps, dev), top_ks=to_device(top_ks, dev),
+            top_ps=to_device(top_ps, dev), max_k=max_k,
             use_top_p=use_top_p,
             top_p_in_topk=bool(use_top_p and max_k > 0 and
                                (top_ks[top_ps < 1.0] > 0).all()))
@@ -1089,7 +1172,8 @@ class ContinuousBatchingEngine:
         inp['mix'] = mix
         return inp
 
-    def _mixed_forward(self, inp: Dict[str, Any], kernel: str
+    def _mixed_forward(self, inp: Dict[str, Any], kernel: str,
+                       graph: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor,
                                   torch.Tensor]:
         """The one-token step at S = the step's width: decode rows sample
@@ -1097,9 +1181,11 @@ class ContinuousBatchingEngine:
         after it), prompt rows feed their chunk.  Each working row's
         query-0 slot is revealed before the forward, and its committed
         window [cursor, cursor + n_commit) after it; pad queries' K/V
-        stays unrevealed, rewritten in place by a later step.  Returns
-        (tokens [B], each row's logits at its last_pos [B, V], the
-        revealed mask)."""
+        stays unrevealed, rewritten in place by a later step.  With
+        `graph` an S = 1 forward is replayed from the read bucket's CUDA
+        graph (sampling and the reveals stay eager).  Returns (tokens
+        [B], each row's logits at its last_pos [B, V], the revealed
+        mask)."""
         tok = sample_logits_rows(self._last, inp['generators'],
                                  **inp['filt'])
         rows = torch.arange(self.n_slots, device=self.device)
@@ -1115,11 +1201,17 @@ class ContinuousBatchingEngine:
                           tokens[:, 1:]], dim=1)
         positions = inp['rope'][:, None] + torch.arange(
             feed.shape[1], device=self.device)
-        x = self.model.hidden(feed, positions, self._cache, kv_mask,
-                              kernel=kernel, read_len=inp['bucket'])
+        if graph and feed.shape[1] == 1:
+            logits = self._graphs.run(inp['bucket'], feed=feed,
+                                      positions=positions, kv_mask=kv_mask,
+                                      last_pos=inp['last_pos'])
+        else:
+            x = self.model.hidden(feed, positions, self._cache, kv_mask,
+                                  kernel=kernel, read_len=inp['bucket'])
+            logits = self.model.head(x[rows, inp['last_pos']])
         kv_mask |= spec_lib.commit_window(self.max_seq_len, cursors,
                                           n_commit, has_work)
-        return tok, self.model.head(x[rows, inp['last_pos']]), kv_mask
+        return tok, logits, kv_mask
 
     @torch.no_grad()
     def mixed_logits(self, kernel: str) -> Tuple[torch.Tensor, List[int]]:
@@ -1128,27 +1220,63 @@ class ContinuousBatchingEngine:
         the chunk ends the prompt, else query 0) with `kernel`, and the
         rows that work, committing nothing: the step rewrites the same
         K/V when it runs.  For holding the kernels against their plain
-        versions on the serving path."""
-        occupied = [i for i, s in enumerate(self._slots) if s is not None]
-        inp = self._mixed_inputs(
-            occupied, [p for p in self._prefills if p.mixed], self._mix_s)
-        rows = occupied + [p.slot_idx for p, _ in inp['mix']]
-        return self._mixed_forward(inp, kernel)[1], rows
+        versions on the serving path.  Joins the step in flight first."""
+        with self._step_lock:
+            self._pipeline_join()
+            occupied, mixed = self._work()
+            inp = self._mixed_inputs(occupied, mixed, self._mix_s)
+            rows = occupied + [p.slot_idx for p, _ in inp['mix']]
+            return self._mixed_forward(inp, kernel)[1], rows
 
-    def _mixed_step(self, occupied: List[int],
-                    mixed: List[_PendingPrefill]) -> None:
-        """One decode step for `occupied`, at the mix width carrying the
-        mixed pendings' prompt chunks when there are any, else at S = 1."""
+    def _dispatch_mixed(self, occupied: List[int],
+                        mixed: List[_PendingPrefill]) -> _InflightStep:
+        """Dispatch half of one decode step for `occupied`, at the mix
+        width carrying the mixed pendings' prompt chunks when there are
+        any, else at S = 1 (replayed from its CUDA graph on the card)."""
+        t_enter = time.perf_counter()
         rids = [self._slots[i].request_id for i in occupied]
         inp = self._mixed_inputs(occupied, mixed,
                                  self._mix_s if mixed else 1)
         tok, new_last, self._kv_mask = self._mixed_forward(
-            inp, self.decode_kernel)
+            inp, self.decode_kernel, graph=self._graphs is not None)
         self._last = torch.where(inp['update_last'][:, None], new_last,
                                  self._last)
-        self._commit_rows(occupied, rids, tok.cpu().numpy()[:, None],
-                          np.ones((self.n_slots,), np.int64))
-        self._advance_mix(inp['mix'], None)
+        host, event = self._fetch(tok)
+        return _InflightStep('mixed' if inp['mix'] else 'plain', host,
+                             event, occupied, rids, inp['mix'], t_enter)
+
+    def _fetch(self, out: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+        """Start the device-to-host copy of a step's results: on the card
+        a non-blocking copy into pinned memory with a CUDA event recorded
+        behind it, (host tensor, event); on the CPU (out, None)."""
+        if not out.is_cuda:
+            return out, None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _consume_step(self, handle: _InflightStep) -> None:
+        """Consume half of one decode step: wait for its tokens, then
+        commit them to the slots still held by their requests and advance
+        the prompts that rode it."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        host = handle.host.numpy()
+        if handle.mode != 'spec':
+            self._commit_rows(handle.occupied, handle.rids, host[:, None],
+                              np.ones((self.n_slots,), np.int64))
+            self._advance_mix(handle.mix, None)
+            return
+        toks, counts = host[:, :-1], host[:, -1]
+        self.spec_steps += 1
+        self.spec_proposed += handle.proposed
+        self.spec_accepted += int(sum(counts[i] - 1
+                                      for i in handle.occupied))
+        self.spec_committed += self._commit_rows(
+            handle.occupied, handle.rids, toks, counts)
+        self._advance_mix(handle.mix, toks)
 
     def _advance_mix(self, mix: List[Tuple[_PendingPrefill, int]],
                      toks: Optional[np.ndarray]) -> None:
@@ -1291,36 +1419,38 @@ class ContinuousBatchingEngine:
         """The next verify's logits [B, k+1, V] with `kernel`, committing
         nothing: the verify rewrites the same K/V when it runs (and the
         draft model its own).  For holding the kernels against their
-        plain versions on the serving path."""
-        occupied = [i for i, s in enumerate(self._slots) if s is not None]
-        inp = self._spec_inputs(
-            occupied, [p for p in self._prefills if p.mixed])
-        return self._spec_forward(inp, kernel)[2]
+        plain versions on the serving path.  Joins the step in flight
+        first."""
+        with self._step_lock:
+            self._pipeline_join()
+            return self._spec_forward(self._spec_inputs(*self._work()),
+                                      kernel)[2]
 
-    def _spec_step(self, occupied: List[int],
-                   mixed: List[_PendingPrefill]) -> None:
+    def _dispatch_spec(self, occupied: List[int],
+                       mixed: List[_PendingPrefill]) -> _InflightStep:
+        """Dispatch half of one verify: the forward, acceptance and the
+        reveals on the device, the draft model's reveal of the committed
+        window (where the reference commits it), and one copy of the
+        step's tokens and counts to the host."""
+        t_enter = time.perf_counter()
         rids = [self._slots[i].request_id for i in occupied]
         inp = self._spec_inputs(occupied, mixed)
         out, counts, _, self._kv_mask = self._spec_forward(
             inp, self.decode_kernel)
         if self._draft is not None:
             self._draft.commit(inp['cursors'], counts, inp['active'])
-        # One fetch of the step's tokens and counts.
-        host = torch.cat([out, counts[:, None]], dim=1).cpu().numpy()
-        toks, counts = host[:, :-1], host[:, -1]
-        self.spec_steps += 1
-        self.spec_proposed += inp['proposed']
-        self.spec_accepted += int(sum(counts[i] - 1 for i in occupied))
-        self.spec_committed += self._commit_rows(occupied, rids, toks,
-                                                 counts)
-        self._advance_mix(inp['mix'], toks)
+        host, event = self._fetch(torch.cat([out, counts[:, None]], dim=1))
+        return _InflightStep('spec', host, event, occupied, rids,
+                             inp['mix'], t_enter, proposed=inp['proposed'])
 
     def speculation_info(self) -> Optional[Dict[str, Any]]:
         """Speculation summary (None when disabled): the proposer, k, and
         the cumulative verify steps, proposed, accepted and committed
-        tokens, with the acceptance rate."""
+        tokens, with the acceptance rate.  Joins the step in flight
+        first."""
         if not self.spec_k:
             return None
+        self._fence()
         proposed = self.spec_proposed
         return dict(
             mode='draft' if self._draft is not None else 'ngram',
@@ -1336,20 +1466,140 @@ class ContinuousBatchingEngine:
     def step(self) -> bool:
         """One scheduler tick: admission and prefill chunks, then one
         decode step for all occupied slots (a verify under speculation;
-        carrying prompt chunks with a mix budget).  False when fully
-        idle."""
+        carrying prompt chunks with a mix budget).  False when fully idle
+        (nothing queued, prefilling, occupied or in flight).
+
+        With async_pipeline the tick is double-buffered: see
+        `_step_async` for the order and why streams do not change."""
+        with self._step_lock:
+            if self.async_pipeline:
+                return self._step_async()
+            return self._step_sync()
+
+    def _work(self) -> Tuple[List[int], List[_PendingPrefill]]:
+        """The occupied slots and the mixed pendings a step serves."""
+        return ([i for i, s in enumerate(self._slots) if s is not None],
+                [p for p in self._prefills if p.mixed])
+
+    def _dispatch(self, occupied: List[int],
+                  mixed: List[_PendingPrefill]) -> _InflightStep:
+        if self.spec_k:
+            return self._dispatch_spec(occupied, mixed)
+        return self._dispatch_mixed(occupied, mixed)
+
+    def _step_sync(self) -> bool:
+        """The synchronous tick: front, dispatch, fetch, consume."""
         self._schedule_front()
-        occupied = [i for i, s in enumerate(self._slots) if s is not None]
-        mixed = [p for p in self._prefills if p.mixed]
+        occupied, mixed = self._work()
         if not occupied and not mixed:
             return bool(self._prefills) or bool(self._queue)
-        if self.spec_k:
-            self._spec_step(occupied, mixed)
-        else:
-            self._mixed_step(occupied, mixed)
+        self._consume_step(self._dispatch(occupied, mixed))
         return True
 
+    def _step_async(self) -> bool:
+        """One double-buffered tick (the reference's `_step_async`):
+
+          1. front    - eviction, admission and prefill chunks, while step
+                        N runs on the device (their device work is queued
+                        behind N on the same stream);
+          2. join N   - wait for N's tokens, then commit them here;
+          3. dispatch N + 1 - build its inputs from the just-committed
+                        state and queue it; return without waiting.
+
+        Commits always land before the next step's inputs are built, so
+        each step sees the per-row state the synchronous loop would give
+        it.  Admission sees a completion one tick later than the
+        synchronous loop (at the join), which can shift batch
+        composition; a row's stream does not depend on its companions
+        (the kv mask keeps rows apart, and a sampled row draws from its
+        own (seed, generated) generator), so each request's tokens stay
+        those of the synchronous loop."""
+        self._schedule_front()
+        consumed = self._pipeline_join()
+        if self._fatal is not None:
+            return False
+        occupied, mixed = self._work()
+        if not occupied and not mixed:
+            # A tick that consumed the last step in flight did work.
+            return consumed or bool(self._prefills) or bool(self._queue)
+        self._pipeline_put(self._dispatch(occupied, mixed))
+        return True
+
+    # -- the pipeline's fence --------------------------------------------
+    def _pipeline_put(self, handle: _InflightStep) -> None:
+        """Record `handle` as the (single) step in flight."""
+        self._inflight = handle
+
+    def _pipeline_join(self) -> bool:
+        """Consume the step in flight, if any: wait for its tokens and
+        commit them.  A step still running on the device when the join
+        begins (the host front took less time than it) counts as
+        overlapped.  True when a step was consumed."""
+        handle = self._inflight
+        if handle is None:
+            return False
+        self._inflight = None
+        if self._fatal is not None:
+            return False        # aborted while in flight: results void
+        if handle.event is not None and not handle.event.query():
+            self._pipe_steps_overlapped += 1
+        self._consume_step(handle)
+        return True
+
+    def _pipeline_abandon(self) -> None:
+        """Forget the step in flight without committing it (abort and
+        close): no commit ever happens but through `_pipeline_join`."""
+        self._inflight = None
+
+    def _fence(self) -> None:
+        """Join the step in flight before reading engine state, from any
+        thread (under the step lock)."""
+        with self._step_lock:
+            self._pipeline_join()
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Fence the pipeline at shutdown (idempotent; a no-op on a
+        synchronous or never-stepped engine): the step in flight is
+        abandoned, never committed, and its device work is waited for up
+        to `timeout` seconds.  There is no fetch thread to join: afterwards
+        no step is in flight and the engine runs nothing (unless a step()
+        still running on another thread holds the step lock past
+        `timeout`: then nothing is changed)."""
+        deadline = time.monotonic() + timeout
+        if not self._step_lock.acquire(timeout=timeout):
+            return
+        try:
+            handle = self._inflight
+            self._pipeline_abandon()
+        finally:
+            self._step_lock.release()
+        if handle is None or handle.event is None:
+            return
+        while not handle.event.query() and time.monotonic() < deadline:
+            time.sleep(0.001)
+
+    def pipeline_info(self) -> Dict[str, Any]:
+        """Pipeline block for /health?verbose=1, with the reference's keys:
+        mode, depth (steps in flight), max_depth, worker_alive, and
+        steps_overlapped (consumed steps still running on the device when
+        their join began; always 0 on the CPU, where a step is done when
+        its dispatch returns).  worker_alive is always False: the port
+        has no fetch thread (a non-blocking copy and a CUDA event take its
+        place)."""
+        return dict(mode='async' if self.async_pipeline else 'sync',
+                    depth=0 if self._inflight is None else 1,
+                    max_depth=1 if self.async_pipeline else 0,
+                    worker_alive=False,
+                    steps_overlapped=self._pipe_steps_overlapped)
+
+    def graph_info(self) -> Optional[Dict[str, Any]]:
+        """The decode graphs captured (buckets, capture seconds, pool
+        bytes, replays), or None where the forward runs eagerly."""
+        return None if self._graphs is None else self._graphs.info()
+
     def run_until_idle(self) -> None:
+        """Step until idle; a step is never left in flight (the last tick
+        joins it and dispatches nothing)."""
         while self.step():
             pass
 
@@ -1364,7 +1614,8 @@ class ContinuousBatchingEngine:
 
     def allocator_leak_report(self) -> Optional[str]:
         """None when the page pool is clean (or unpaged), else what
-        leaked."""
+        leaked.  Joins the step in flight first."""
+        self._fence()
         return None if self._alloc is None else self._alloc.leak_report()
 
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -1381,6 +1632,7 @@ class ContinuousBatchingEngine:
                 pending = {r for r in rids
                            if r in self._events
                            and not self._events[r].is_set()}
+        self._fence()
         return [self.wait(r, timeout=0.001) for r in rids]
 
 

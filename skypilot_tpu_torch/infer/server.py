@@ -6,15 +6,19 @@ Port of the /generate surface of skypilot_tpu/infer/server.py:
                      503 {"status": "unhealthy", ...} after a fatal
                      decode-loop failure; ?verbose=1 adds the replica's
                      detail (model, slots, page size, queue depth, the
-                     allocator's leak report, and speculation's counts
-                     on a speculating engine)
+                     allocator's leak report, the decode pipeline's
+                     block, and speculation's counts on a speculating
+                     engine)
   POST /generate  -> {"tokens": [[...], ...]}
        body: {"prompt_ids": [[...], ...], "max_new_tokens": N,
               "temperature": T, "top_k": K, "top_p": P, "eos_id": E,
               "seed": S, "deadline_s": D}
 
 A dedicated decode-loop thread drives ContinuousBatchingEngine.step();
-handler threads only submit() and wait().  In this slice any exception
+handler threads only submit() and wait().  The engine's decode pipeline
+is double-buffered by default, as the reference's (--async-pipeline;
+--no-async-pipeline restores the synchronous tick), and shutdown()
+fences it (`close()`).  In this slice any exception
 out of step() is fatal: the replica goes unhealthy and every waiter
 fails fast (the reference's transient-failure recovery and restart
 budget come later).  Serving random weights is refused unless
@@ -26,7 +30,8 @@ request-level InferenceEngine instead: each /generate call runs
 queue-depth shed; the continuous-only flags --decode-kernel,
 --prefill-kernel, --page-size, --prefill-mix-budget, --spec-k and
 --draft-model are refused at startup, as the reference refuses them (it
-accepts --prefill-chunk and ignores it).
+accepts --prefill-chunk and ignores it, and --async-pipeline too: the
+request-level engine has no pipeline).
 
 --spec-k K turns on speculative decoding (K proposals a step, n-gram
 self-drafting, or a draft model's with --draft-model and
@@ -109,6 +114,7 @@ class InferenceServer:
                  draft_overrides: Optional[Dict[str, Any]] = None,
                  draft_checkpoint_dir: Optional[str] = None,
                  prefill_mix_budget: int = 0,
+                 async_pipeline: bool = True,
                  continuous: bool = True,
                  default_deadline_s: Optional[float] = None,
                  max_queue_depth: Optional[int] = None,
@@ -134,10 +140,11 @@ class InferenceServer:
                 kv_cache_dtype=kv_cache_dtype, quantize=quantize,
                 spec_k=spec_k, draft_model=draft_model,
                 draft_overrides=draft_overrides,
-                prefill_mix_budget=prefill_mix_budget, device=device)
+                prefill_mix_budget=prefill_mix_budget,
+                async_pipeline=async_pipeline, device=device)
         else:
-            # As the reference, --prefill-chunk and --kv-read-bucket are
-            # accepted and unused here.
+            # As the reference, --prefill-chunk, --kv-read-bucket and
+            # --async-pipeline are accepted and unused here.
             for flag, refused, why in (
                     ('--decode-kernel', decode_kernel != 'auto',
                      'paged decode attention is slot-mode only'),
@@ -186,7 +193,8 @@ class InferenceServer:
         if self.continuous:
             detail.update(n_slots=eng.n_slots, page_size=eng.page_size,
                           queue_depth=eng.queue_depth,
-                          leak_report=eng.allocator_leak_report())
+                          leak_report=eng.allocator_leak_report(),
+                          pipeline=eng.pipeline_info())
             spec = eng.speculation_info()
             if spec is not None:
                 detail['speculation'] = spec
@@ -333,12 +341,16 @@ class InferenceServer:
 
     def shutdown(self, join_timeout_s: float = 5.0) -> None:
         """Stop the decode loop and the HTTP server (safe to call from
-        another thread than serve_forever's)."""
+        another thread than serve_forever's).  With the decode loop down
+        nothing consumes a step in flight, so the engine's pipeline is
+        fenced too (`close`)."""
         self._running = False
         self._work.set()
         if self._decode_thread is not None:
             self._decode_thread.join(timeout=join_timeout_s)
             self._decode_thread = None
+        if self.continuous:
+            self.engine.close(timeout=join_timeout_s)
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()
@@ -401,6 +413,18 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--draft-checkpoint-dir', default=None,
                         help='Not ported yet: a draft model serves random '
                              'weights (tests/dev).')
+    parser.add_argument('--async-pipeline', dest='async_pipeline',
+                        action='store_true', default=True,
+                        help='Double-buffered decode stepping: the host '
+                             'front of a tick runs while the step '
+                             'dispatched last tick runs on the device, '
+                             'then that step is joined and the next '
+                             'dispatched.  Streams stay those of the '
+                             'synchronous loop.  Default on.')
+    parser.add_argument('--no-async-pipeline', dest='async_pipeline',
+                        action='store_false',
+                        help='The synchronous decode loop: dispatch, fetch '
+                             'and commit inline each tick.')
     parser.add_argument('--prefill-mix-budget', type=int, default=0,
                         help='Mixed prefill/decode batches: up to this many '
                              'prompt tokens ride each decode step (0 = '
@@ -453,7 +477,8 @@ def main() -> None:
         draft_overrides=draft_overrides,
         draft_checkpoint_dir=args.draft_checkpoint_dir,
         prefill_mix_budget=args.prefill_mix_budget,
-        continuous=args.continuous, device=args.device)
+        async_pipeline=args.async_pipeline, continuous=args.continuous,
+        device=args.device)
     logger.info(f'engine ready in {time.perf_counter() - t0:.1f}s')
     server.serve_forever()
 

@@ -205,7 +205,7 @@ class DraftRunner:
         slot's fixed pages); the draft's kv-mask row is the target's, so
         the two caches' cursors stay aligned."""
         cache1 = PrefillCache.zeros(self.config, 1, self.device)
-        self.model.hidden(torch.as_tensor(tokens[:, :pad], device=self.device),
+        self.model.hidden(engine_lib.to_device(tokens[:, :pad], self.device),
                           torch.arange(pad, device=self.device)[None], cache1,
                           mask_row[None], kernel=self.kernels['prefill'])
         if self.page_size:

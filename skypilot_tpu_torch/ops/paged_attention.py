@@ -29,7 +29,8 @@ from skypilot_tpu_torch.ops import grouped_attention as ga
 # Kernel launches since the count was last set to 0, float pools and
 # int8 pools apart (chip_smoke.py reads and resets them around each
 # serving run), and the same split by the queries a row, S (1: decode;
-# k + 1: a speculative verify; the mixed step's query width).
+# k + 1: a speculative verify; the mixed step's query width).  A CUDA
+# graph's replay adds the launches captured in it (`add_launches`).
 launches = 0
 launches_int8 = 0
 launches_by_s: Dict[int, int] = {}
@@ -94,6 +95,32 @@ def _workspace(device, stream: int, n_work: int,
         ws[1] = torch.zeros(max(n_counters, 4096), dtype=torch.int32,
                             device=device)
     return ws
+
+
+def scratch(device, stream: int) -> List[torch.Tensor]:
+    """The kernel's scratch tensors on (device, stream), as a CUDA graph
+    captured on that stream holds them (kept alive beside the graph, so
+    that growing the scratch never frees memory a graph still writes)."""
+    return [t for t in _scratch.get((device, stream), ()) if t is not None]
+
+
+def launches_by_branch() -> Dict[str, Dict[int, int]]:
+    """A copy of the launch counts by S: {'float': ..., 'int8': ...}."""
+    return {'float': dict(launches_by_s), 'int8': dict(launches_int8_by_s)}
+
+
+def add_launches(counts: Dict[str, Dict[int, int]]) -> None:
+    """Add launches made outside `_launch`, by branch and S (as
+    `launches_by_branch` gives them): a CUDA graph's replay of the
+    launches captured in it, or, negative, the capture's own calls of
+    the wrapper, which launch nothing (infer/graphs.py)."""
+    global launches, launches_int8
+    for s, n in counts.get('float', {}).items():
+        launches += n
+        launches_by_s[s] = launches_by_s.get(s, 0) + n
+    for s, n in counts.get('int8', {}).items():
+        launches_int8 += n
+        launches_int8_by_s[s] = launches_int8_by_s.get(s, 0) + n
 
 
 def paged_decode_attention_plain(q: torch.Tensor, page_key: torch.Tensor,

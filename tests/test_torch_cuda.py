@@ -29,6 +29,13 @@ dequantized weights bit for bit, the prefill and first decode step
 logits within 6% of max |logit| (chip_smoke.py's serving bound: the
 kernels against the plain versions, bf16 roundings in other orders).
 
+The S = 1 paged decode forward replayed from CUDA graphs (a tiny bf16
+model, bf16 and int8 caches): replayed logits equal to the eager
+forward's bit for bit at two read buckets, each replay adding its
+graph's kernel-4 launches to the wrapper's counts; a planted graph whose
+static kv mask is never overwritten fails that check; and the pipelined
+engine with graphs gives the synchronous eager engine's greedy streams.
+
 Tolerances, per element.  f32 (paged decode only; the prefill kernel
 takes 16-bit types): 1e-4 absolute against the plain version at f32.
 bf16: against the plain version run at f32 on the same values, the
@@ -840,3 +847,80 @@ def test_int8_weight_forward_matches_cpu(dev):
         assert torch.isfinite(logits).all()
         gap = (logits - want).abs().max() / want.abs().max()
         assert gap <= SERVE_LOGITS_REL_TOL, gap
+
+
+# -- the S = 1 decode forward replayed from CUDA graphs -----------------------
+def _graph_engine(dev, kv_cache_dtype, **kw):
+    """A tiny bf16 paged engine on the card whose read buckets are 64
+    positions (prompts padded to 64 tokens)."""
+    return teng.ContinuousBatchingEngine(
+        model='llama-tiny', model_overrides=_TINY, n_slots=2, page_size=16,
+        kv_read_bucket=64, kv_cache_dtype=kv_cache_dtype, device=dev, **kw)
+
+
+def _go_live(eng, prompt):
+    eng.submit(prompt, teng.SamplingConfig(max_new_tokens=8))
+    n = sum(s is not None for s in eng._slots)  # pylint: disable=protected-access
+    while sum(s is not None for s in eng._slots) == n:  # pylint: disable=protected-access
+        eng._schedule_front()  # pylint: disable=protected-access
+
+
+def _replay_gap(eng):
+    """The next decode step's logits replayed from its graph against the
+    eager forward's, over the occupied rows: max |diff| / max |logit|."""
+    rows = [i for i, s in enumerate(eng._slots) if s is not None]  # pylint: disable=protected-access
+    eager = eng.decode_logits('fused')[rows]
+    replay = eng.decode_logits('fused', graph=True)[rows]
+    assert torch.isfinite(eager).all()
+    return ((replay - eager).abs().max() / eager.abs().max()).item()
+
+
+@pytest.mark.parametrize('kv_cache_dtype', ['auto', 'int8'],
+                         ids=['bf16', 'int8'])
+def test_decode_graph_replay_equals_eager(dev, kv_cache_dtype):
+    """Two read buckets (a 30-token prompt, padded to 64, reads 128
+    positions; a 100-token one, padded to 128, 192), bf16 and int8
+    caches: the replayed logits equal the eager forward's bit for bit
+    (the same kernels in the same order on the same inputs), and each
+    replay adds its graph's kernel-4 launches (one a layer) to the
+    wrapper's counts."""
+    eng = _graph_engine(dev, kv_cache_dtype)
+    count = 'launches_int8' if kv_cache_dtype == 'int8' else 'launches'
+    for prompt_len, buckets in ((30, [128]), (100, [128, 192])):
+        _go_live(eng, [(7 * i + 3) % 512 for i in range(prompt_len)])
+        assert _replay_gap(eng) == 0.0
+        assert eng.graph_info()['buckets'] == buckets
+        before = getattr(pa, count)
+        eng.decode_logits('fused', graph=True)
+        assert getattr(pa, count) == before + _TINY['n_layers']
+
+
+def test_decode_graph_stale_mask_is_caught(dev):
+    """A graph whose static kv mask is never overwritten (a planted
+    fault) reads a stale mask: the check above (replay equal to eager)
+    fails."""
+    eng = _graph_engine(dev, 'auto')
+    eng._graphs.copied = ('feed', 'positions', 'last_pos')  # pylint: disable=protected-access
+    _go_live(eng, [(7 * i + 3) % 512 for i in range(30)])
+    assert _replay_gap(eng) > 0.0
+
+
+@pytest.mark.parametrize('kv_cache_dtype', ['auto', 'int8'],
+                         ids=['bf16', 'int8'])
+def test_async_graph_streams_equal_sync_eager(dev, kv_cache_dtype):
+    """The pipelined engine replaying its decode graphs gives the greedy
+    streams of the synchronous engine running the eager forward: three
+    prompts (padded to 64) through two slots, 70 new tokens each, so the
+    reads cross from 128 to 192 positions."""
+    prompts = [[(5 * i + j) % 512 for i in range(n)]
+               for j, n in enumerate((30, 40, 20))]
+    sync = _graph_engine(dev, kv_cache_dtype, async_pipeline=False)
+    sync._graphs = None  # pylint: disable=protected-access
+    want = sync.generate(prompts, teng.SamplingConfig(max_new_tokens=70))
+    eng = _graph_engine(dev, kv_cache_dtype)
+    assert eng.generate(
+        prompts, teng.SamplingConfig(max_new_tokens=70)) == want
+    info = eng.graph_info()
+    assert info['replays'] > 0 and len(info['buckets']) >= 2
+    assert eng.pipeline_info()['depth'] == 0
+    assert eng.allocator_leak_report() is None

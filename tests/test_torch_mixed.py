@@ -13,8 +13,10 @@ reveal past the prompt's end would show.  Each port stream must equal
 the JAX engine's unmixed greedy stream token for token: contiguous and
 paged float caches (the JAX 'xla' engine as the oracle), the paged int8
 cache (the JAX engine running its Pallas kernels in interpret mode), and
-the mixed steps under n-gram and draft-model speculation.  After every
-step the kv mask reveals exactly what the engine has committed: a
+the mixed steps under n-gram and draft-model speculation.  The port's
+engines here take the synchronous tick (async_pipeline=False; the
+pipelined tick is tests/test_torch_async.py's), so after every step
+the kv mask reveals exactly what the engine has committed: a
 pending's prompt up to its cursor; a live slot's prompt and the decode
 positions of its committed tokens (under speculation all but the last,
 the pending token, which the next verify feeds), nothing of a rejected,
@@ -94,7 +96,8 @@ def _shared_prefix_beside_a_long_pending(je, sd):
     eng = teng.ContinuousBatchingEngine(
         model='llama-tiny', model_overrides=OV, n_slots=2,
         prefill_bucket=PS, page_size=PS, params=sd,
-        param_dtype=torch.float32, prefill_mix_budget=5, device='cpu')
+        param_dtype=torch.float32, prefill_mix_budget=5,
+        async_pipeline=False, device='cpu')
     eng.generate([a], teng.SamplingConfig(max_new_tokens=4))
     assert _generate(eng, [b, c]) == want
     assert eng.prefix_hit_pages == 2
@@ -125,7 +128,8 @@ def test_mixed_streams_equal_jax_unmixed(page_size, kv_cache_dtype):
                   draft_overrides=OV, draft_params=sd)]
     for run in runs:
         eng = teng.ContinuousBatchingEngine(
-            **kw, params=sd, param_dtype=torch.float32, device='cpu', **run)
+            **kw, params=sd, param_dtype=torch.float32,
+            async_pipeline=False, device='cpu', **run)
         assert _generate(eng, PROMPTS) == want, run
         assert eng.allocator_leak_report() is None
     if page_size and kv_cache_dtype == 'auto':
