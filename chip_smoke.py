@@ -161,10 +161,40 @@ Phases, any failure exits non-zero:
                batches); then 10 steps on one repeated batch must lower
                the loss by more than 0.5 (the reference's memorization
                test).
+     finetune - the LoRA recipe through `python -m skypilot_tpu_torch.train`
+               (its `main`): llama3-8b at full width and all 32 layers,
+               rank-16 adapters (alpha 16) on q/k/v/o, --train-only lora,
+               remat_policy='save_attn', --loss-chunk 1024, batch 2 x seq
+               8192 in two microbatches (the recipe's 16 cut to fit the
+               smoke's time), 3 steps, every count set to 0 just before
+               and read just after: each flash kernel once a layer and
+               microbatch (save_attn keeps the attention's output and lse,
+               so the backward runs no forward), the serving kernels 0.
+               Every base parameter bit for bit unchanged (against a host
+               copy taken at init), every adapter b off zero, losses and
+               grad norms finite; step ms, tokens/s, peak memory.  Then
+               one step's loss and adapter grad norm, kernels vs plain, on
+               the finetuned weights of the first FT_CHECK_LAYERS layers at
+               1 x 8192, within the train limits.
+     checkpoint - llama3-8b width cut to CK_LAYERS layers, LoRA as
+               finetune's, in a temporary directory removed at the end: a
+               params-only base checkpoint (no adapters) restored into a
+               LoRA train_only trainer (base equal, every b zero, step 0,
+               the first logits the base model's bit for bit); 2 + 2 steps
+               with a save and a fresh trainer's `restore_or_init` between
+               against 4 uninterrupted steps (bit for bit, else within the
+               train limits; which one held is printed); then the
+               trained checkpoint served by the server's CLI path
+               (`server_from_args`, --checkpoint-dir, LoRA overrides):
+               one /generate of CK_LENS prompts whose greedy streams must
+               equal an engine's given the same params in memory, kernels
+               4 and 5 counted from 0 around it; then graph_check on the
+               server's engine (the adapters inside the decode graphs).
   6. summary - one JSON line {"kernels": [...]} with each kernel's route,
                source, the TPU kernel it replaces, its launches on its
                path (serve phase, serve_int8 phase, train phase) and in
-               every phase ("launches_by_phase"; kernel 4 also by S in
+               every phase, finetune and checkpoint included
+               ("launches_by_phase"; kernel 4 also by S in
                serve_spec, serve_mixed and serve_async, "launches_by_s"),
                error, times
                and bound (kernel 4's S 5 and S 64 cases in `cases`);
@@ -184,6 +214,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -2318,6 +2349,349 @@ def phase_train(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# finetune and checkpoint: LoRA finetuning, the port's checkpoints, serving
+# a trained checkpoint
+# ---------------------------------------------------------------------------
+# The LoRA recipe (the reference's examples/llm/llama3_finetune_lora.yaml):
+# llama3-8b at full width and all 32 layers, rank-16 adapters on q/k/v/o,
+# only the adapters trained, remat_policy='save_attn', the chunked loss,
+# seq 8192.  The global batch is cut from the recipe's 16 to 2 (two
+# microbatches of 1 x 8192) to fit the smoke's time.
+FT_OVERRIDES = {'lora_rank': 16, 'lora_alpha': 16,
+                'remat_policy': 'save_attn'}
+FT_BATCH, FT_ACCUM, FT_SEQ, FT_STEPS, FT_CHUNK = 2, 2, 8192, 3, 1024
+# The kernels-vs-plain step of the finetune: the finetuned weights of its
+# first FT_CHECK_LAYERS layers (embedding, head and adapters included),
+# one microbatch of 1 x 8192.  The plain flash versions hold [1, 32, 8192,
+# 8192] f32 scores, 8.6 GB each, several at once: with the 32-layer f32
+# base (32 GB) beside them they would not fit the card.
+FT_CHECK_LAYERS = 2
+# The checkpoint phase: llama3-8b width cut to CK_LAYERS layers (about
+# 6 GB of f32 params a checkpoint), LoRA as the finetune, batch 2 x
+# CK_SEQ; serving the trained checkpoint as serve_async's default server.
+CK_LAYERS, CK_SEQ, CK_STEPS = 2, 2048, 4
+CK_LENS = (40, 300, 900, 1500)
+CK_NEW = 16
+
+
+def _lora_train_config(n_layers=None, **kw):
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    overrides = dict(FT_OVERRIDES, max_seq_len=kw['seq_len'])
+    if n_layers is not None:
+        overrides['n_layers'] = n_layers
+    return trainer_lib.TrainConfig(
+        model='llama3-8b', train_only='lora', loss_chunk=FT_CHUNK,
+        warmup_steps=2, total_steps=20, model_overrides=overrides, **kw)
+
+
+def _adapter_grad_norm(model) -> float:
+    return float(torch.sqrt(sum(p.grad.float().square().sum()
+                                for p in model.parameters()
+                                if p.requires_grad)))
+
+
+def finetune_gaps(dev, model) -> tuple:
+    """One step's loss and adapter grad norm with the kernels and with
+    their plain versions, on the finetuned weights of the first
+    FT_CHECK_LAYERS layers of `model` and one 1 x FT_SEQ microbatch.
+    Returns (loss gap, grad-norm gap), relative (inf where not finite)."""
+    from skypilot_tpu_torch.train import data as data_lib
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    tr = trainer_lib.Trainer(_lora_train_config(
+        FT_CHECK_LAYERS, global_batch_size=1, seq_len=FT_SEQ), device=dev)
+    tr.init_state()
+    keep = set(tr.model.state_dict())
+    with torch.no_grad():
+        tr.model.load_state_dict({k: v for k, v in model.state_dict().items()
+                                  if k in keep})
+    batch = next(data_lib.synthetic_data(1, FT_SEQ,
+                                         tr.model_config.vocab_size, seed=2,
+                                         device=dev))
+    got = {}
+    for kernel in ('fused', 'xla'):
+        m = trainer_lib.compute_grads(tr.model, batch, kernel=kernel,
+                                      loss_chunk=FT_CHUNK)
+        got[kernel] = (float(m['loss']), _adapter_grad_norm(tr.model))
+        tr.model.zero_grad(set_to_none=True)
+    (lk, gk), (lp, gp) = got['fused'], got['xla']
+    gap = (abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
+    if not np.isfinite([lk, gk, *gap]).all():
+        gap = (float('inf'), float('inf'))
+    log(f'finetune: one step at {FT_CHECK_LAYERS} layers (the finetuned '
+        f'weights), 1 x {FT_SEQ}, kernels vs plain versions: loss {lk:.6f} '
+        f'vs {lp:.6f} (rel gap {gap[0]:.3e}, limit {TRAIN_LOSS_REL_TOL}); '
+        f'adapter grad norm {gk:.6f} vs {gp:.6f} (rel gap {gap[1]:.3e}, '
+        f'limit {TRAIN_GNORM_REL_TOL})')
+    del tr
+    return gap
+
+
+def phase_finetune(dev, card: str) -> dict:
+    """The LoRA recipe at full depth through `train/__main__.main`:
+    launches (every count set to 0 just before, read just after; kernel
+    1 once a layer and microbatch under save_attn), the base bit for bit
+    unchanged, every adapter b trained off zero, finite losses and grad
+    norms, peak memory, step ms and tokens/s; then kernels vs plain
+    (`finetune_gaps`)."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import __main__ as train_main
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ['--model', 'llama3-8b', '--model-overrides',
+            json.dumps(FT_OVERRIDES), '--train-only', 'lora', '--loss-chunk',
+            str(FT_CHUNK), '--global-batch-size', str(FT_BATCH),
+            '--grad-accum-steps', str(FT_ACCUM), '--seq-len', str(FT_SEQ),
+            '--steps', str(FT_STEPS), '--log-every', '1', '--json-metrics']
+    # The trainer that main builds, and a host copy of its frozen base
+    # taken right after init (before the first step).
+    seen = {}
+    init_state = trainer_lib.Trainer.init_state
+
+    def spy(self, *args, **kwargs):
+        init_state(self, *args, **kwargs)
+        seen['trainer'] = self
+        seen['base'] = {n: p.detach().to('cpu') for n, p in
+                        self.model.named_parameters() if not p.requires_grad}
+
+    trainer_lib.Trainer.init_state = spy
+    try:
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = train_main.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+    finally:
+        trainer_lib.Trainer.init_state = init_state
+    tr = seen['trainer']
+    L, n = tr.model_config.n_layers, FT_STEPS
+    want = {'paged_decode': 0, 'ragged_prefill': 0, 'paged_decode_int8': 0,
+            'ragged_prefill_int8': 0, 'flash_fwd': L * n * FT_ACCUM,
+            'flash_bwd_dq': L * n * FT_ACCUM,
+            'flash_bwd_dkv': L * n * FT_ACCUM}
+    params = dict(tr.model.named_parameters())
+    adapters = {k: p for k, p in params.items() if p.requires_grad}
+    n_adapter = sum(p.numel() for p in adapters.values())
+    base_bytes = sum(t.nbytes for t in seen['base'].values())
+    peak = metrics['peak_memory_bytes']
+    log(f'finetune: llama3-8b, {L} layers, LoRA rank '
+        f'{tr.model_config.lora_rank} alpha {tr.model_config.lora_alpha} on '
+        f'{tr.model_config.lora_targets}, train_only=lora, remat_policy='
+        f"{tr.model_config.remat_policy}, loss_chunk {FT_CHUNK}, batch "
+        f'{FT_BATCH} x seq {FT_SEQ} in {FT_ACCUM} microbatches, {n} steps '
+        f'in {wall:.1f}s (model init and the base host copy included); '
+        f'{n_adapter} adapter params, frozen base {base_bytes} bytes; '
+        f'launches {launches}, expected {want}')
+    if launches != want:
+        raise AssertionError(f'finetune launches {launches} != {want}')
+    hist = metrics['history']
+    if len(hist) != n or not all(
+            np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])
+            for r in hist):
+        raise AssertionError(f'finetune: missing or non-finite steps: {hist}')
+    for r in hist:
+        log(f'finetune step {r["step"]}: loss {r["loss"]:.4f} grad_norm '
+            f'{r["grad_norm"]:.6f} step {r["step_ms"]:.1f} ms '
+            f'{r["tokens_per_sec"]:.1f} tokens/s')
+    steady = hist[1:]
+    step_ms = sum(r['step_ms'] for r in steady) / len(steady)
+    tps = FT_BATCH * FT_SEQ / step_ms * 1e3
+    log(f'finetune: steps 2-{n}: {step_ms:.1f} ms/step, {tps:.1f} tokens/s '
+        f'({card}); peak memory allocated {peak} bytes '
+        f'({peak / 2**30:.2f} GiB)')
+    changed = [k for k, t in seen.pop('base').items()
+               if not torch.equal(params[k].detach().cpu(), t)]
+    untrained = [k for k, p in adapters.items()
+                 if k.endswith('_lora.b') and not bool(p.detach().any())]
+    log(f'finetune: base parameters changed: {len(changed)} of '
+        f'{len(params) - len(adapters)}; adapter b still all zero: '
+        f'{len(untrained)} of {sum(k.endswith(".b") for k in adapters)}')
+    if changed or untrained or not all(llama.is_lora(k) for k in adapters):
+        raise AssertionError(f'finetune: base changed {changed[:3]} or '
+                             f'adapters untrained {untrained[:3]}')
+    gap = finetune_gaps(dev, tr.model)
+    del tr, seen, params, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (gap[0] <= TRAIN_LOSS_REL_TOL and gap[1] <= TRAIN_GNORM_REL_TOL):
+        raise AssertionError('finetune: kernels disagree with the plain '
+                             'versions')
+    return dict(launches=launches, step_ms=step_ms, tokens_per_s=tps,
+                peak_bytes=peak, gaps=gap)
+
+
+def _ck_trainer(dev, lora=True):
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    if lora:
+        config = _lora_train_config(CK_LAYERS, global_batch_size=2,
+                                    seq_len=CK_SEQ)
+    else:
+        config = trainer_lib.TrainConfig(
+            model='llama3-8b', global_batch_size=2, seq_len=CK_SEQ,
+            model_overrides={'n_layers': CK_LAYERS, 'max_seq_len': CK_SEQ})
+    return trainer_lib.Trainer(config, device=dev)
+
+
+def _ck_steps(tr, start: int, n: int) -> list:
+    from skypilot_tpu_torch.train import data as data_lib
+    stream = data_lib.synthetic_data(2, CK_SEQ, tr.model_config.vocab_size,
+                                     start_step=start, device=tr.device)
+    return [float(tr.step(next(stream))['loss']) for _ in range(n)]
+
+
+def _ck_gaps(got: dict, want: dict) -> float:
+    """max |got - want| over max |want| across the tensors of two
+    state_dicts."""
+    return max(float((got[k].float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30))
+               for k, w in want.items())
+
+
+def phase_checkpoint(dev, card: str) -> dict:
+    """Save, resume, base-into-LoRA restore and serving a trained
+    checkpoint, at llama3-8b width cut to CK_LAYERS layers, in a
+    temporary directory removed at the end."""
+    import shutil
+    import tempfile
+
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
+    out = {}
+    srv = None
+    try:
+        # Base into LoRA: a params-only base (no adapters) opened by a LoRA
+        # train_only trainer.
+        base = _ck_trainer(dev, lora=False)
+        base.init_state()
+        t0 = time.perf_counter()
+        ckpt_lib.save_params(ckpt_lib.make_manager(f'{root}/base'),
+                             base.model.state_dict())
+        save_s = time.perf_counter() - t0
+        lora = _ck_trainer(dev)
+        t0 = time.perf_counter()
+        step = ckpt_lib.restore_or_init(ckpt_lib.make_manager(
+            f'{root}/base'), lora)
+        load_s = time.perf_counter() - t0
+        sd, want = lora.model.state_dict(), base.model.state_dict()
+        differ = [k for k, t in want.items() if not torch.equal(sd[k], t)]
+        b_live = [k for k, t in sd.items()
+                  if k.endswith('_lora.b') and bool(t.any())]
+        from skypilot_tpu_torch.train import data as data_lib
+        vocab = base.model_config.vocab_size
+        tok = next(data_lib.synthetic_data(2, CK_SEQ, vocab, seed=3,
+                                           device=dev))['inputs']
+        with torch.no_grad():
+            gap = _logit_gap(lora.model.train_forward(tok),
+                             base.model.train_forward(tok))
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                     os.walk(f'{root}/base') for f in fs)
+        log(f'checkpoint: base into LoRA: a params-only base of {nbytes} '
+            f'bytes saved in {save_s:.1f}s, restored into a LoRA train_only '
+            f'trainer in {load_s:.1f}s at step {step}; base params differing '
+            f'{len(differ)} of {len(want)}; adapter b not zero {len(b_live)};'
+            f' first logits against the base model: gap {gap} (limit 0.0)')
+        if step != 0 or differ or b_live or gap != 0.0 or \
+                set(sd) - set(want) != {k for k in sd if llama.is_lora(k)}:
+            raise AssertionError('checkpoint: base into LoRA failed')
+        del base, lora, sd, want
+        shutil.rmtree(f'{root}/base')
+
+        # Resume: 2 + 2 steps with a save and a fresh trainer between,
+        # against 4 uninterrupted steps.
+        whole = _ck_trainer(dev)
+        whole.init_state()
+        want_losses = _ck_steps(whole, 0, CK_STEPS)
+        half = CK_STEPS // 2
+        first = _ck_trainer(dev)
+        first.init_state()
+        losses = _ck_steps(first, 0, half)
+        manager = ckpt_lib.make_manager(f'{root}/run', max_to_keep=1)
+        ckpt_lib.save(manager, first, wait=True)
+        del first
+        resumed = _ck_trainer(dev)
+        step = ckpt_lib.restore_or_init(manager, resumed)
+        losses += _ck_steps(resumed, step, CK_STEPS - half)
+        got_sd, want_sd = resumed.model.state_dict(), whole.model.state_dict()
+        exact = losses == want_losses and all(
+            torch.equal(got_sd[k], t) for k, t in want_sd.items())
+        loss_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, want_losses))
+        param_gap = _ck_gaps(got_sd, want_sd)
+        log(f'checkpoint: resume at step {step}: losses {losses} against '
+            f'uninterrupted {want_losses}; bit for bit: {exact} (loss rel '
+            f'gap {loss_gap:.3e}, params max rel gap {param_gap:.3e})')
+        if step != half or not (exact or loss_gap <= TRAIN_LOSS_REL_TOL):
+            raise AssertionError('checkpoint: resume differs from the '
+                                 'uninterrupted run')
+        out.update(resume_exact=exact, resume_loss_gap=loss_gap)
+        del whole, got_sd, want_sd
+        ckpt_lib.save(manager, resumed, wait=True)
+        params = {k: v.detach().clone()
+                  for k, v in resumed.model.state_dict().items()}
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Serving the trained checkpoint: the CLI's server against an
+        # engine given the same params in memory.
+        overrides = {'n_layers': CK_LAYERS, 'lora_rank': 16,
+                     'lora_alpha': 16}
+        srv = server_lib.server_from_args([
+            '--model', 'llama3-8b', '--model-overrides',
+            json.dumps(overrides), '--checkpoint-dir', f'{root}/run',
+            '--page-size', '16', '--prefill-chunk', '512',
+            '--max-batch-size', '8', '--max-seq-len', '4096', '--port',
+            '0', '--host', '127.0.0.1', '--device', str(dev)])
+        eng = srv.engine
+        if (eng.decode_kernel, eng.prefill_kernel) != ('fused', 'fused'):
+            raise AssertionError('checkpoint: serving runs no kernel')
+        srv.start()
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f'http://127.0.0.1:{srv.port}'
+        rng = np.random.RandomState(31)
+        prompts = [rng.randint(0, vocab, n).tolist() for n in CK_LENS]
+        _reset_launch_counts()
+        served = _post(url + '/generate', {'prompt_ids': prompts,
+                                           'max_new_tokens': CK_NEW,
+                                           'temperature': 0.0})['tokens']
+        launches = _launch_counts()
+        _check_branches(launches, 'auto', 'checkpoint')
+        ref = engine_lib.ContinuousBatchingEngine(
+            model='llama3-8b', params=params, n_slots=8, max_seq_len=4096,
+            model_overrides=overrides, prefill_chunk=512, page_size=16,
+            device=dev)
+        want_tokens = ref.generate(prompts, engine_lib.SamplingConfig(
+            max_new_tokens=CK_NEW))
+        same = sum(a == b for g, w in zip(served, want_tokens)
+                   for a, b in zip(g, w))
+        log(f'checkpoint: served from --checkpoint-dir: {same} of '
+            f'{sum(map(len, want_tokens))} greedy tokens equal to the engine '
+            f'given the same params in memory; launches {launches}')
+        if served != want_tokens:
+            raise AssertionError('checkpoint: served streams differ from the '
+                                 'in-memory params')
+        srv.shutdown()
+        srv = None
+        graph_check(eng, vocab, 'checkpoint')
+        del ref, params, eng
+        out['launches'] = launches
+        return out
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2365,6 +2739,10 @@ def main() -> int:
     launches.update({k: v for k, v in by_phase['train'].items()
                      if k.startswith('flash')})
     lap('train')
+    by_phase['finetune'] = phase_finetune(dev, card)['launches']
+    lap('finetune')
+    by_phase['checkpoint'] = phase_checkpoint(dev, card)['launches']
+    lap('checkpoint')
     entries = []
     for name, src, replaces in (
             ('paged_decode', 'paged_decode',

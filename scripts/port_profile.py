@@ -23,17 +23,28 @@ weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
             (quantize='int8') and a bf16 KV cache;
   train   - with the engine freed, the port's Trainer on llama3-8b widths
             cut to 4 layers, batch 2 x seq 4096 (random weights from a
-            seed): 2 steps after one unprofiled step.
+            seed): 2 steps after one unprofiled step;
+  finetune_nothing, finetune_unchunked, finetune - the same shape with
+            rank-16 LoRA adapters and train_only='lora': remat 'nothing',
+            then remat_policy='save_attn', then save_attn with the chunked
+            loss (loss_chunk 1024, the recipe's settings);
+            finetune_full - chip_smoke.py's finetune phase: all 32
+            layers, batch 2 x seq 8192 in two microbatches, the recipe's
+            settings.
 
 For each window it prints one JSON line: host wall time per step (host
 clock around work that ends in a device synchronize), device busy time
 (the union of the kernels' intervals in the trace), the device's idle
 share, the attention kernels' share, the device kernels and the host's
-launch calls (kernel launches and graph launches) a step, and the
-kernels that took the most device time.  With --trace-dir it also
+launch calls (kernel launches and graph launches) a step, the peak
+device memory allocated in the window, the share of
+busy time in f32 GEMMs (`_is_f32_gemm`: in a train step only the f32
+head's products run in f32), and the kernels that took the most device
+time.  With --trace-dir it also
 writes each window's Chrome trace there; --windows picks some of serve
 (prefill, the three decode modes), serve_int8 (their int8-cache twins),
-serve_wint8 (their int8-weight twins) and train (default: all four).
+serve_wint8 (their int8-weight twins), train and finetune (default:
+all five).
 Needs one NVIDIA card.
 """
 from __future__ import annotations
@@ -56,6 +67,11 @@ import chip_smoke  # noqa: E402  pylint: disable=wrong-import-position
 
 _ATTENTION = ('paged_decode_kernel', 'ragged_prefill_', 'flash_fwd_kernel',
               'flash_bwd_')
+
+
+def _is_f32_gemm(name: str) -> bool:
+    """cuBLAS's and CUTLASS's f32 (SIMT, ffma) GEMM kernels."""
+    return 'sgemm' in name or 'gemm_f32f32_f32f32' in name
 
 
 def _kernel_events(prof):
@@ -81,6 +97,9 @@ def _summary(name, prof, wall_s, steps):
         'device_busy_ms_per_step': busy / steps / 1e3,
         'device_idle_share': (1.0 - busy / wall_us) if events else None,
         'attention_kernel_share_of_busy': (attn / busy) if busy else None,
+        'f32_gemm_share_of_busy': (sum(
+            v for k, v in by_name.items() if _is_f32_gemm(k)) / busy)
+        if busy else None,
         'kernel_launches_per_step': len(events) / steps,
         'host_launches_per_step': sum(
             e.name in chip_smoke.LAUNCH_CALLS for e in prof.events()) / steps,
@@ -129,15 +148,17 @@ def _serve_windows(window, tag, kv_cache_dtype, quantize=None):
         eng.run_until_idle()
 
 
-def _train_window(window):
+def _train_window(window, name='train', n_layers=4, seq=4096, **kw):
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import trainer as trainer_lib
+    overrides = {'n_layers': n_layers, 'max_seq_len': seq}
+    overrides.update(kw.pop('model_overrides', {}))
     config = trainer_lib.TrainConfig(
-        model='llama3-8b', global_batch_size=2, seq_len=4096,
-        model_overrides={'n_layers': 4, 'max_seq_len': 4096})
+        model='llama3-8b', global_batch_size=2, seq_len=seq,
+        model_overrides=overrides, **kw)
     tr = trainer_lib.Trainer(config, device='cuda')
     tr.init_state()
-    stream = data_lib.synthetic_data(2, 4096, tr.model_config.vocab_size,
+    stream = data_lib.synthetic_data(2, seq, tr.model_config.vocab_size,
                                      device='cuda')
     tr.step(next(stream))
     batches = [next(stream) for _ in range(2)]
@@ -147,19 +168,24 @@ def _train_window(window):
             tr.step(batch)
         return len(batches)
 
-    window('train', train)
+    window(name, train)
+    del tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--trace-dir', default=None)
     parser.add_argument('--windows',
-                        default='serve,serve_int8,serve_wint8,train',
+                        default='serve,serve_int8,serve_wint8,train,'
+                                'finetune',
                         help='comma-separated: serve, serve_int8, '
-                             'serve_wint8, train')
+                             'serve_wint8, train, finetune')
     args = parser.parse_args()
     picked = set(args.windows.split(','))
-    if not picked <= {'serve', 'serve_int8', 'serve_wint8', 'train'}:
+    if not picked <= {'serve', 'serve_int8', 'serve_wint8', 'train',
+                      'finetune'}:
         raise SystemExit(f'port_profile: unknown windows {args.windows}')
     if not torch.cuda.is_available():
         raise SystemExit('port_profile: needs an NVIDIA card')
@@ -169,6 +195,7 @@ def main() -> int:
 
     def window(name, steps_fn):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             steps = steps_fn()
@@ -178,7 +205,9 @@ def main() -> int:
             os.makedirs(args.trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(
                 args.trace_dir, f'port_profile_{name}.json'))
-        print(json.dumps(_summary(name, prof, wall, steps)), flush=True)
+        summary = _summary(name, prof, wall, steps)
+        summary['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+        print(json.dumps(summary), flush=True)
 
     for name, tag, kv_cache_dtype, quantize in (
             ('serve', '', 'auto', None), ('serve_int8', '_int8', 'int8', None),
@@ -189,6 +218,16 @@ def main() -> int:
             torch.cuda.empty_cache()
     if 'train' in picked:
         _train_window(window)
+    if 'finetune' in picked:
+        adapters = {'lora_rank': 16, 'lora_alpha': 16}
+        _train_window(window, 'finetune_nothing', train_only='lora',
+                      model_overrides=adapters)
+        lora = dict(train_only='lora', model_overrides=dict(
+            adapters, remat_policy='save_attn'))
+        _train_window(window, 'finetune_unchunked', **lora)
+        _train_window(window, 'finetune', loss_chunk=1024, **lora)
+        _train_window(window, 'finetune_full', n_layers=32, seq=8192,
+                      grad_accum_steps=2, loss_chunk=1024, **lora)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)

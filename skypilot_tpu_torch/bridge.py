@@ -13,6 +13,10 @@ F.linear's [out, in]:
   down   [F, D]     -> [D, F]         lm_head [D, V] -> [V, D]
   tok_embed [V, D] and the norms' `scale` [D] carry over as they are.
 
+LoRA adapters (`<proj>_lora` subtrees, a [in, rank] and b [rank,
+prod(out)]) become `<part>.<proj>_lora.a` / `.b` as they are: the port
+uses them as x @ a @ b too, so nothing is transposed.
+
 A tree quantized by the reference's `quantize_params_int8` holds
 {'q8', 'scale'} leaves in place of the kernels and of tok_embed: q8
 takes the float leaf's place, and its scale ([1, *out], one per output
@@ -70,6 +74,10 @@ def _layer(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for name in names:
             out.update(_linear(f'{part}.{name}',
                                tree[part][name]['kernel']))
+            adapter = tree[part].get(f'{name}_lora')
+            if adapter is not None:
+                out[f'{part}.{name}_lora.a'] = _tensor(adapter['a'])
+                out[f'{part}.{name}_lora.b'] = _tensor(adapter['b'])
     return out
 
 
@@ -83,7 +91,8 @@ def params_from_jax(tree: Mapping[str, Any],
                     cfg: Any) -> Dict[str, torch.Tensor]:
     """The port's Llama state_dict (CPU tensors, the tree's dtypes) from
     a JAX Llama param tree of numpy arrays, scanned or unscanned, float
-    or int8 (`quantize_params_int8`'s {'q8', 'scale'} leaves)."""
+    or int8 (`quantize_params_int8`'s {'q8', 'scale'} leaves), with or
+    without LoRA adapters."""
     if 'layers' in tree:
         layers = [_unstack(tree['layers'], i) for i in range(cfg.n_layers)]
     else:

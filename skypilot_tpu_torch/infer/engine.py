@@ -79,6 +79,13 @@ else 'xla', and 'fused' without a paged cache is a ValueError.
 Not ported yet (later slices): disaggregated handoff, live migration,
 the host-RAM tier, recovery, metrics and traces.
 
+Weights come from `params` (a state_dict), from `checkpoint_dir` (the
+params item of the latest step of a port checkpoint,
+train/checkpoint.py `load_params_for_serving`; a LoRA checkpoint serves
+with the same `lora_rank` in `model_overrides`, and its adapters apply
+in every forward, the captured decode graphs too), or at random from
+`seed`.
+
 Thread model: submit()/cancel()/wait() are thread-safe; step() must be
 driven by ONE thread (the server's decode loop).  The readers of engine
 state (`decode_logits`, `mixed_logits`, `verify_logits`,
@@ -103,7 +110,7 @@ from skypilot_tpu_torch.infer import graphs as graphs_lib
 from skypilot_tpu_torch.infer import paging as paging_lib
 from skypilot_tpu_torch.infer import speculative as spec_lib
 from skypilot_tpu_torch.models.llama import (PagedCache, PrefillCache,
-                                             SlotCache, quant_axis,
+                                             SlotCache, is_lora, quant_axis,
                                              quantize_int8_weight,
                                              resolve_kernel)
 
@@ -245,11 +252,13 @@ def quantize_params_int8(params: Mapping[str, torch.Tensor]
     rank >= 2 (the [out, in] matmul weights, lm_head and tok_embed)
     becomes int8 at its key with f32 scales at `<key>_scale`, one per
     output row ([out, 1]; tok_embed's over its vocab axis, [1, D]); the
-    norms stay float.  Bit for bit the reference's on the same values, so
-    cast to param_dtype first, as the reference's engine does."""
+    norms and the LoRA adapters stay float (the reference quantizes only
+    kernels and the embedding).  Bit for bit the reference's on the same
+    values, so cast to param_dtype first, as the reference's engine
+    does."""
     out: Dict[str, torch.Tensor] = {}
     for key, x in params.items():
-        if x.is_floating_point() and x.dim() >= 2:
+        if x.is_floating_point() and x.dim() >= 2 and not is_lora(key):
             out[key], out[key + '_scale'] = quantize_int8_weight(
                 x, quant_axis(key))
         else:
@@ -267,7 +276,7 @@ def _serving_params(params: Mapping[str, torch.Tensor],
     for key, x in params.items():
         if x.is_floating_point() and not key.endswith('_scale'):
             x = x.to(cfg.param_dtype)
-            if cfg.quantize and x.dim() >= 2:
+            if cfg.quantize and x.dim() >= 2 and not is_lora(key):
                 out.update(quantize_params_int8({key: x}))
                 continue
         out[key] = x
@@ -279,11 +288,13 @@ def build_model(model: str, params: Optional[Mapping[str, torch.Tensor]],
                 model_overrides: Optional[Dict[str, Any]], param_dtype: Any,
                 prefill_bucket: int, page_size: int, max_pages: int,
                 quantize: Optional[str], kv_cache_dtype: str, seed: int,
-                device: torch.device) -> Tuple[Any, Any]:
+                device: torch.device,
+                checkpoint_dir: Optional[str] = None) -> Tuple[Any, Any]:
     """The engines' model and config, as the reference's InferenceEngine
     builds them: the arguments validated, the page pool sized (every slot
     can fill its row, +1 for the null page, unless max_pages), and the
-    weights loaded from `params` or drawn from `seed`."""
+    weights loaded from `params`, else from `checkpoint_dir`, else drawn
+    from `seed`."""
     if page_size < 0 or page_size & (page_size - 1):
         raise ValueError(f'page_size must be 0 (unpaged) or a power of '
                          f'two, got {page_size}')
@@ -308,11 +319,24 @@ def build_model(model: str, params: Optional[Mapping[str, torch.Tensor]],
                              n_slots * (peek.max_seq_len // page_size) + 1)
     net, config = models_lib.get_model(model, device=device, **overrides)
     net.eval()
+    from_checkpoint = params is None and checkpoint_dir is not None
+    if from_checkpoint:
+        from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+        params = ckpt_lib.load_params_for_serving(
+            ckpt_lib.make_manager(checkpoint_dir))
     with torch.no_grad():
         if params is None:
             gen = torch.Generator(device=device)
             gen.manual_seed(seed)
             net.init_weights(gen)
+        elif from_checkpoint:
+            try:
+                net.load_state_dict(_serving_params(params, config))
+            except RuntimeError as e:
+                raise ValueError(f'checkpoint param tree does not match '
+                                 f'model {config.name!r} (serve a LoRA '
+                                 'checkpoint with its lora_rank in the '
+                                 f'model overrides): {e}') from e
         else:
             net.load_state_dict(_serving_params(params, config))
     return net, config
@@ -500,6 +524,8 @@ class ContinuousBatchingEngine:
                  draft_overrides: Optional[Dict[str, Any]] = None,
                  prefill_mix_budget: int = 0,
                  async_pipeline: bool = True,
+                 checkpoint_dir: Optional[str] = None,
+                 draft_checkpoint_dir: Optional[str] = None,
                  device: DeviceLike = 'cuda') -> None:
         if spec_k < 0:
             raise ValueError(f'spec_k must be >= 0, got {spec_k}')
@@ -515,8 +541,10 @@ class ContinuousBatchingEngine:
             model_overrides=model_overrides, param_dtype=param_dtype,
             prefill_bucket=prefill_bucket, page_size=page_size,
             max_pages=max_pages, quantize=quantize,
-            kv_cache_dtype=kv_cache_dtype, seed=seed, device=self.device)
-        self.loaded_real_weights = params is not None
+            kv_cache_dtype=kv_cache_dtype, seed=seed, device=self.device,
+            checkpoint_dir=checkpoint_dir)
+        self.loaded_real_weights = (params is not None
+                                    or checkpoint_dir is not None)
         kernels = resolve_kernels(decode_kernel, prefill_kernel,
                                   on_cuda=self.device.type == 'cuda',
                                   page_size=page_size)
@@ -577,7 +605,8 @@ class ContinuousBatchingEngine:
                 model_overrides=draft_overrides, param_dtype=param_dtype,
                 prefill_bucket=prefill_bucket,
                 kv_cache_dtype=kv_cache_dtype, page_size=page_size,
-                kernels=kernels, seed=seed, device=self.device)
+                kernels=kernels, seed=seed, device=self.device,
+                checkpoint_dir=draft_checkpoint_dir)
         self.spec_steps = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
@@ -1663,6 +1692,7 @@ class InferenceEngine:
                  kv_cache_dtype: str = 'auto',
                  page_size: int = 0,
                  seed: int = 0,
+                 checkpoint_dir: Optional[str] = None,
                  device: DeviceLike = 'cuda') -> None:
         self.device = resolve_device(device)
         self.model, self.config = build_model(
@@ -1670,7 +1700,9 @@ class InferenceEngine:
             model_overrides=model_overrides, param_dtype=param_dtype,
             prefill_bucket=prefill_bucket, page_size=page_size, max_pages=0,
             quantize=quantize, kv_cache_dtype=kv_cache_dtype, seed=seed,
-            device=self.device)
+            device=self.device, checkpoint_dir=checkpoint_dir)
+        self.loaded_real_weights = (params is not None
+                                    or checkpoint_dir is not None)
         self.page_size = page_size
         self.max_batch = max_batch_size
         self.max_seq_len = self.config.max_seq_len

@@ -36,12 +36,17 @@ request-level engine has no pipeline).
 --spec-k K turns on speculative decoding (K proposals a step, n-gram
 self-drafting, or a draft model's with --draft-model and
 --draft-overrides); --prefill-mix-budget N lets up to N prompt tokens
-ride each decode step instead of dedicated prefill ticks.  A draft
-model's weights are random (from the engine's seed): --draft-checkpoint-
-dir is not ported yet.
+ride each decode step instead of dedicated prefill ticks.
+
+Weights: `params` (a state_dict), or --checkpoint-dir (the params of
+the latest step of a port checkpoint, `train/checkpoint.py`; a LoRA
+checkpoint serves with its adapters given the same rank:
+--model-overrides '{"lora_rank": 16, "lora_alpha": 16}'), else random
+weights only with --allow-random-weights.  A draft model's weights come
+from --draft-checkpoint-dir, else at random from the engine's seed.
 
 Run: python -m skypilot_tpu_torch.infer.server --model llama3-8b \
-         --page-size 16 --prefill-chunk 512 --allow-random-weights
+         --page-size 16 --prefill-chunk 512 --checkpoint-dir DIR
      (add --kv-cache-dtype int8 for the int8 KV cache, --quantize int8
      for int8 weights, --spec-k 4 [--draft-model llama3.2-1b] for
      speculative decoding, --prefill-mix-budget 64 for mixed batches;
@@ -63,7 +68,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -99,6 +104,7 @@ class InferenceServer:
                  max_seq_len: Optional[int] = None,
                  model_overrides: Optional[Dict[str, Any]] = None,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
+                 checkpoint_dir: Optional[str] = None,
                  param_dtype: Any = torch.bfloat16,
                  prefill_chunk: int = 0,
                  kv_read_bucket: int = 512,
@@ -119,15 +125,12 @@ class InferenceServer:
                  default_deadline_s: Optional[float] = None,
                  max_queue_depth: Optional[int] = None,
                  device: DeviceLike = 'cuda') -> None:
-        if params is None and not allow_random_weights:
+        if params is None and checkpoint_dir is None and \
+                not allow_random_weights:
             raise ValueError(
                 'refusing to serve randomly initialized weights: pass '
-                'params (or allow_random_weights=True for tests/dev).')
-        if draft_checkpoint_dir is not None:
-            raise NotImplementedError(
-                'draft_checkpoint_dir is not ported yet (ROADMAP.md queue '
-                "1: 'Checkpoint and launch'); a draft model serves random "
-                'weights from the engine seed')
+                'params or checkpoint_dir (or allow_random_weights=True '
+                'for tests/dev).')
         self.continuous = continuous
         if continuous:
             self.engine = engine_lib.ContinuousBatchingEngine(
@@ -141,7 +144,8 @@ class InferenceServer:
                 spec_k=spec_k, draft_model=draft_model,
                 draft_overrides=draft_overrides,
                 prefill_mix_budget=prefill_mix_budget,
-                async_pipeline=async_pipeline, device=device)
+                async_pipeline=async_pipeline, checkpoint_dir=checkpoint_dir,
+                draft_checkpoint_dir=draft_checkpoint_dir, device=device)
         else:
             # As the reference, --prefill-chunk, --kv-read-bucket and
             # --async-pipeline are accepted and unused here.
@@ -154,7 +158,8 @@ class InferenceServer:
                      'chunked prefill is a slot-engine path'),
                     ('--page-size', page_size,
                      'the paged KV cache is slot-mode only'),
-                    ('--spec-k/--draft-model', spec_k or draft_model,
+                    ('--spec-k/--draft-model', spec_k or draft_model
+                     or draft_checkpoint_dir,
                      'speculation is a slot-mode decode path')):
                 if refused:
                     raise ValueError(f'{flag} requires continuous batching '
@@ -163,7 +168,8 @@ class InferenceServer:
                 model=model, params=params, max_batch_size=max_batch_size,
                 max_seq_len=max_seq_len, model_overrides=model_overrides,
                 param_dtype=param_dtype, quantize=quantize,
-                kv_cache_dtype=kv_cache_dtype, device=device)
+                kv_cache_dtype=kv_cache_dtype, checkpoint_dir=checkpoint_dir,
+                device=device)
         self._lock = threading.Lock()
         self.model_name = model
         # An argument beats the env knob, which beats the default.
@@ -398,6 +404,9 @@ def build_parser() -> argparse.ArgumentParser:
                              'composes with --kv-cache-dtype.')
     parser.add_argument('--model-overrides', default=None,
                         help='JSON dict of model-config overrides.')
+    parser.add_argument('--checkpoint-dir', default=None,
+                        help='Serve the params of the latest step of this '
+                             'port checkpoint (train/checkpoint.py).')
     parser.add_argument('--spec-k', type=int, default=0,
                         help='Speculative tokens proposed a decode step (0 '
                              'disables speculation); without --draft-model '
@@ -411,8 +420,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--draft-overrides', default=None,
                         help='JSON dict of draft-model config overrides.')
     parser.add_argument('--draft-checkpoint-dir', default=None,
-                        help='Not ported yet: a draft model serves random '
-                             'weights (tests/dev).')
+                        help='The draft model\'s weights: the params of the '
+                             'latest step of this port checkpoint (default: '
+                             'random, from the engine seed).')
     parser.add_argument('--async-pipeline', dest='async_pipeline',
                         action='store_true', default=True,
                         help='Double-buffered decode stepping: the host '
@@ -430,8 +440,8 @@ def build_parser() -> argparse.ArgumentParser:
                              'prompt tokens ride each decode step (0 = '
                              'dedicated prefill ticks).')
     parser.add_argument('--allow-random-weights', action='store_true',
-                        help='Serve randomly initialized weights '
-                             '(tests/dev; no checkpoint loader yet).')
+                        help='Serve randomly initialized weights without '
+                             '--checkpoint-dir (tests/dev).')
     parser.add_argument('--device', default='cuda')
     return parser
 
@@ -453,20 +463,22 @@ def check_args(parser: argparse.ArgumentParser,
         parser.error('--draft-model requires --spec-k > 0')
 
 
-def main() -> None:
+def server_from_args(argv: Optional[Sequence[str]] = None
+                     ) -> InferenceServer:
+    """The server the CLI runs for `argv` (default sys.argv), built and
+    warm but not yet serving."""
     parser = build_parser()
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     check_args(parser, args)
     overrides = _json_object(parser, '--model-overrides',
                              args.model_overrides)
     draft_overrides = _json_object(parser, '--draft-overrides',
                                    args.draft_overrides)
-    logging.basicConfig(level=logging.INFO)
-    t0 = time.perf_counter()
-    server = InferenceServer(
+    return InferenceServer(
         model=args.model, port=args.port, host=args.host,
         max_batch_size=args.max_batch_size, max_seq_len=args.max_seq_len,
-        model_overrides=overrides, prefill_chunk=args.prefill_chunk,
+        model_overrides=overrides, checkpoint_dir=args.checkpoint_dir,
+        prefill_chunk=args.prefill_chunk,
         kv_read_bucket=args.kv_read_bucket, page_size=args.page_size,
         max_pages=args.max_pages,
         allow_random_weights=args.allow_random_weights,
@@ -479,6 +491,12 @@ def main() -> None:
         prefill_mix_budget=args.prefill_mix_budget,
         async_pipeline=args.async_pipeline, continuous=args.continuous,
         device=args.device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    t0 = time.perf_counter()
+    server = server_from_args(argv)
     logger.info(f'engine ready in {time.perf_counter() - t0:.1f}s')
     server.serve_forever()
 

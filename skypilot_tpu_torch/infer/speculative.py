@@ -167,7 +167,8 @@ class DraftRunner:
                  spec_k: int, model_overrides: Optional[Dict[str, Any]],
                  param_dtype: Any, prefill_bucket: int, kv_cache_dtype: str,
                  page_size: int, kernels: Dict[str, str], seed: int,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 checkpoint_dir: Optional[str] = None) -> None:
         if spec_k <= 0:
             raise ValueError(f'spec_k must be positive, got {spec_k}')
         self.k = spec_k
@@ -176,7 +177,7 @@ class DraftRunner:
             model_overrides=model_overrides, param_dtype=param_dtype,
             prefill_bucket=prefill_bucket, page_size=page_size,
             max_pages=0, quantize=None, kv_cache_dtype=kv_cache_dtype,
-            seed=seed, device=device)
+            seed=seed, device=device, checkpoint_dir=checkpoint_dir)
         # Proposals are target token ids: a draft of another tokenizer
         # would decode garbage, so a vocab mismatch fails here.
         if self.config.vocab_size != target_vocab_size:

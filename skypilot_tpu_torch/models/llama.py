@@ -32,10 +32,15 @@ its use, one weight at a time (`dequantize_int8`, the reference's
 `maybe_dequantize_params`).  A slot forward takes S >= 1 queries a
 row: one decode token, or a speculative verify window or a mixed
 prefill/decode step (the reference's `_verify_positions` and
-`_verify_mask`; `_slot_positions`, `_slot_mask`).  The training forward (`Llama.train_forward`) takes no cache; it reruns
-each block in the backward pass (`remat`, through
-torch.utils.checkpoint) as the reference's `nothing_saveable` policy
-does.
+`_verify_mask`; `_slot_positions`, `_slot_mask`).  The training
+forward (`Llama.train_forward`) takes no cache; it reruns each block in
+the backward pass (`remat`, through torch.utils.checkpoint), whole as
+the reference's `nothing_saveable` policy does, or around the attention
+with `remat_policy='save_attn'`.  With `lora_rank` > 0 every forward
+(training, prefill, paged and contiguous slot forwards) adds the LoRA
+delta of each targeted projection (`LoraAdapter`, the reference's
+`maybe_lora`); under weight-only int8 the adapters stay float, as the
+reference's `quantize_params_int8` leaves them.
 """
 from __future__ import annotations
 
@@ -99,6 +104,16 @@ class LlamaConfig:
     remat: bool = True
     remat_policy: str = 'nothing'
     attention_impl: str = 'flash'
+    # LoRA finetuning: rank 0 = off.  Adapters are additive siblings of
+    # their projections (`<proj>_lora.a` [in, rank], `.b` [rank, out]),
+    # so the base names are unchanged and a base checkpoint loads into a
+    # LoRA model (train/checkpoint.py restore_params_partial); train
+    # only the adapters with the trainer's `train_only='lora'`.  The
+    # MLP projections (gate/up/down_proj) are opt-in targets.
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ('q_proj', 'k_proj', 'v_proj',
+                                     'o_proj')
 
     def __post_init__(self):
         if self.kv_cache_dtype not in ('auto', 'int8'):
@@ -107,6 +122,10 @@ class LlamaConfig:
         if self.quantize not in (None, 'int8'):
             raise ValueError(f"quantize must be None or 'int8', got "
                              f'{self.quantize!r}.')
+        if self.lora_rank < 0:
+            raise ValueError(f'lora_rank must be >= 0, got {self.lora_rank}')
+        # A JSON override gives a list.
+        object.__setattr__(self, 'lora_targets', tuple(self.lora_targets))
         object.__setattr__(self, 'dtype', as_dtype(self.dtype))
         object.__setattr__(self, 'param_dtype', as_dtype(self.param_dtype))
 
@@ -558,11 +577,7 @@ def _train_attention(cfg: LlamaConfig, *, kernel: str):
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} is context parallelism, "
             "not ported yet (ROADMAP.md queue 1: 'Parallelism')")
-    if cfg.remat_policy == 'save_attn':
-        raise NotImplementedError(
-            "remat_policy='save_attn' is not ported yet (ROADMAP.md queue "
-            "1: 'Training, the rest')")
-    if cfg.remat_policy != 'nothing':
+    if cfg.remat_policy not in ('nothing', 'save_attn'):
         raise ValueError(f'Unknown remat_policy {cfg.remat_policy!r}; '
                          "expected 'nothing' or 'save_attn'.")
     window = cfg.sliding_window
@@ -645,6 +660,55 @@ def _use(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
+def is_lora(name: str) -> bool:
+    """Whether a state_dict name is a LoRA adapter's (`<proj>_lora.a`
+    or `.b`): adapters stay float under weight-only int8, as the
+    reference's `quantize_params_int8` quantizes only kernels and the
+    embedding."""
+    return '_lora.' in name
+
+
+class LoraAdapter(nn.Module):
+    """Low-rank additive delta of one projection (the reference's
+    `LoraAdapter`): ((x @ a) @ b) * alpha / rank in cfg.dtype, with a
+    [in, rank] and b [rank, out] in param_dtype (not transposed: used as
+    x @ a @ b).  b starts at zero (`Llama.init_weights`), so a fresh
+    adapter adds exactly nothing."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 cfg: LlamaConfig, device: torch.device):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.scale = cfg.lora_alpha / cfg.lora_rank
+        self.a = _param((in_features, cfg.lora_rank), cfg.param_dtype, device)
+        self.b = _param((cfg.lora_rank, out_features), cfg.param_dtype,
+                        device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return ((x.to(dt) @ self.a.to(dt)) @ self.b.to(dt)) * self.scale
+
+
+def _add_adapters(module: nn.Module, shapes, cfg: LlamaConfig,
+                  device) -> None:
+    """Register `<name>_lora` for each projection of `shapes` ({name:
+    [out, in]}) that cfg.lora_targets names, when cfg.lora_rank > 0."""
+    if not cfg.lora_rank:
+        return
+    for name, (out_f, in_f) in shapes.items():
+        if name in cfg.lora_targets:
+            setattr(module, name + '_lora',
+                    LoraAdapter(in_f, out_f, cfg, device))
+
+
+def _project(module: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Projection `name` of x in cfg.dtype, plus its adapter's delta when
+    it has one (the reference's `maybe_lora`)."""
+    y = F.linear(x, _use(module, name, module.cfg.dtype))
+    adapter = getattr(module, name + '_lora', None)
+    return y if adapter is None else y + adapter(x)
+
+
 class RMSNorm(nn.Module):
 
     def __init__(self, dim: int, eps: float, dtype: torch.dtype,
@@ -689,29 +753,30 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
-        for name, shape in (('q_proj', (h * hd, d)), ('k_proj', (kv * hd, d)),
-                            ('v_proj', (kv * hd, d)), ('o_proj', (d, h * hd))):
+        shapes = {'q_proj': (h * hd, d), 'k_proj': (kv * hd, d),
+                  'v_proj': (kv * hd, d), 'o_proj': (d, h * hd)}
+        for name, shape in shapes.items():
             _weight(self, name, shape, cfg.param_dtype, cfg, device)
+        _add_adapters(self, shapes, cfg, device)
 
-    def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor,
-                                                    torch.Tensor],
-                attend) -> torch.Tensor:
+    def qkv(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Rotated q [B, H, S, hd] (contiguous) and k, and v [B, kvh, S,
+        hd] of the normed input x [B, S, dim]."""
         cfg = self.cfg
-        dt = cfg.dtype
         b, s, _ = x.shape
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        x = x.to(dt)
-        q = F.linear(x, _use(self, 'q_proj', dt)).view(b, s, h, hd
-                                                       ).transpose(1, 2)
-        k = F.linear(x, _use(self, 'k_proj', dt)).view(b, s, kv, hd
-                                                       ).transpose(1, 2)
-        v = F.linear(x, _use(self, 'v_proj', dt)).view(b, s, kv, hd
-                                                       ).transpose(1, 2)
-        q = rotate(q, *rope).contiguous()
-        k = rotate(k, *rope)
-        out = attend(q, k, v)                       # [B, S, H, hd]
-        return F.linear(out.reshape(b, s, h * hd).to(dt),
-                        _use(self, 'o_proj', dt))
+        x = x.to(cfg.dtype)
+        q = _project(self, 'q_proj', x).view(b, s, h, hd).transpose(1, 2)
+        k = _project(self, 'k_proj', x).view(b, s, kv, hd).transpose(1, 2)
+        v = _project(self, 'v_proj', x).view(b, s, kv, hd).transpose(1, 2)
+        return rotate(q, *rope).contiguous(), rotate(k, *rope), v
+
+    def output(self, out: torch.Tensor) -> torch.Tensor:
+        """o_proj of the attention output [B, S, H, hd] -> [B, S, dim]."""
+        b, s, h, hd = out.shape
+        return _project(self, 'o_proj',
+                        out.reshape(b, s, h * hd).to(self.cfg.dtype))
 
 
 class MLP(nn.Module):
@@ -720,16 +785,17 @@ class MLP(nn.Module):
         super().__init__()
         self.cfg = cfg
         f, d = cfg.ffn_dim, cfg.dim
-        for name, shape in (('gate_proj', (f, d)), ('up_proj', (f, d)),
-                            ('down_proj', (d, f))):
+        shapes = {'gate_proj': (f, d), 'up_proj': (f, d),
+                  'down_proj': (d, f)}
+        for name, shape in shapes.items():
             _weight(self, name, shape, cfg.param_dtype, cfg, device)
+        _add_adapters(self, shapes, cfg, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.cfg.dtype
-        x = x.to(dt)
-        gate = F.linear(x, _use(self, 'gate_proj', dt))
-        up = F.linear(x, _use(self, 'up_proj', dt))
-        return F.linear(F.silu(gate) * up, _use(self, 'down_proj', dt))
+        x = x.to(self.cfg.dtype)
+        gate = _project(self, 'gate_proj', x)
+        up = _project(self, 'up_proj', x)
+        return _project(self, 'down_proj', F.silu(gate) * up)
 
 
 class Block(nn.Module):
@@ -743,8 +809,26 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device)
 
     def forward(self, x, rope, attend) -> torch.Tensor:
-        x = x + self.attention(self.attention_norm(x), rope, attend)
+        return self._rest(x, attend(*self._qkv(x, rope)))
+
+    def _qkv(self, x, rope):
+        return self.attention.qkv(self.attention_norm(x), rope)
+
+    def _rest(self, x, out):
+        """The block after its attention: o_proj, residual, the MLP."""
+        x = x + self.attention.output(out)
         return x + self.mlp(self.mlp_norm(x))
+
+    def forward_save_attn(self, x, rope, attend) -> torch.Tensor:
+        """The block under remat_policy='save_attn': the attention norm
+        and q/k/v projections, then the o_proj and MLP half, each rerun
+        in the backward pass (checkpointed segments), with the attention
+        between them outside any checkpoint, so its output and lse are
+        kept and the backward launches no flash forward."""
+        q, k, v = checkpoint_lib.checkpoint(self._qkv, x, rope,
+                                            use_reentrant=False)
+        return checkpoint_lib.checkpoint(self._rest, x, attend(q, k, v),
+                                         use_reentrant=False)
 
 
 class Llama(nn.Module):
@@ -778,12 +862,15 @@ class Llama(nn.Module):
         norms.  An int8 model draws each weight as the float model does
         (same order, shapes and dtypes, so the same generator gives the
         same values) and stores its quantization of the weight cast to
-        param_dtype, one weight at a time."""
+        param_dtype, one weight at a time.  LoRA adapters are drawn after
+        every base weight, so a LoRA model's base weights are those of the
+        model without adapters from the same generator: each `a`
+        normal(1 / rank) (the reference's initializer), each `b` zeros."""
         cfg = self.cfg
         o_std = 0.02 / math.sqrt(2 * cfg.n_layers)
         params = dict(self.named_parameters())
         for name, p in params.items():
-            if name.endswith('_scale'):
+            if name.endswith('_scale') or is_lora(name):
                 continue
             if name.endswith('.weight'):
                 p.fill_(1.0)
@@ -800,6 +887,11 @@ class Llama(nn.Module):
                                                 quant_axis(name))
                 p.copy_(q)
                 params[name + '_scale'].copy_(scale)
+        for name, p in params.items():
+            if name.endswith('_lora.a'):
+                p.normal_(0.0, 1.0 / cfg.lora_rank, generator=generator)
+            elif name.endswith('_lora.b'):
+                p.zero_()
 
     def hidden(self, tokens: torch.Tensor, positions: torch.Tensor,
                cache: Union[PrefillCache, PagedCache, SlotCache],
@@ -852,10 +944,27 @@ class Llama(nn.Module):
                       kernel: str = 'auto') -> torch.Tensor:
         """Cacheless forward (the reference's `Llama.__call__` with
         decode=False): f32 logits [B, S, V], or with `return_hidden` the
-        final-normed hidden states [B, S, dim].  Under autograd each
-        block is checkpointed when `cfg.remat` (its forward reruns in
-        the backward pass).  `kernel` as `resolve_kernel`, on the
-        tokens' device."""
+        final-normed hidden states [B, S, dim].  `kernel` as
+        `resolve_kernel`, on the tokens' device.
+
+        Under autograd with `cfg.remat` each block reruns in the backward
+        pass, by `cfg.remat_policy`:
+          'nothing'    the whole block is one checkpoint (the reference's
+                       nothing_saveable): only its input is kept, and the
+                       backward reruns the flash forward too;
+          'save_attn'  `Block.forward_save_attn`: the attention output
+                       and lse are kept (the reference's
+                       save_only_these_names('attn_out', 'attn_lse')),
+                       everything else in the block reruns, and the
+                       backward launches no flash forward.
+        A divergence by design under 'save_attn': the flash op keeps its
+        inputs q, k, v (rotated, [B, H|kvh, S, hd]) between the forward
+        and the backward as well, where the reference recomputes them
+        from the block input; at llama3-8b widths in bf16 that is 96 MiB
+        more a layer per 8192 tokens, and the flash backward needs no
+        rerun of the q/k/v projections.  With attention_impl='reference'
+        the plain attention's autograd graph is kept, not its output
+        alone."""
         cfg = self.cfg
         attend = _train_attention(
             cfg, kernel=resolve_kernel(kernel, tokens.device))
@@ -866,11 +975,13 @@ class Llama(nn.Module):
         rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            if remat:
+            if not remat:
+                x = layer(x, rope, attend)
+            elif cfg.remat_policy == 'save_attn':
+                x = layer.forward_save_attn(x, rope, attend)
+            else:
                 x = checkpoint_lib.checkpoint(layer, x, rope, attend,
                                               use_reentrant=False)
-            else:
-                x = layer(x, rope, attend)
         x = self.final_norm(x)
         return x if return_hidden else self.head(x)
 

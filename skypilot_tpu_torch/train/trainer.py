@@ -7,9 +7,21 @@ pass), gradient accumulation over microbatches, then
 optax.chain(clip_by_global_norm, adamw) with the warmup-cosine schedule,
 reproduced in PyTorch and applied in place.
 
-This slice trains on one device without LoRA or a chunked loss.  Every
-config field of the reference that would need more raises a ValueError
-that names the ROADMAP.md item it waits for, rather than being ignored.
+`train_only` freezes every parameter whose name has no dotted part
+containing the substring (the reference's `_trainable_mask`; 'lora'
+trains only the adapters): frozen parameters do not require grad, so
+no weight-gradient GEMM runs for them (the reference's stop_gradient),
+get no update, no weight decay and no AdamW moments (its
+multi_transform with set_to_zero), and the grad norm and its clipping
+cover the trainable parameters alone.  `loss_chunk` > 0 applies the f32
+head per chunk of the sequence under activation checkpointing
+(`loss_fn_chunked`), so at most [B, chunk, V] f32 logits are live.
+`Trainer.train` saves checkpoints (train/checkpoint.py) every
+`checkpoint_every` steps.
+
+This slice trains on one device.  Every config field of the reference
+that would need more raises a ValueError that names the ROADMAP.md item
+it waits for, rather than being ignored.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch import models as models_lib
@@ -71,17 +84,6 @@ def check_supported(config: TrainConfig) -> None:
             or config.pipeline_circular_repeats != 1):
         raise ValueError('pipeline settings: pipeline parallelism is not '
                          "ported yet (ROADMAP.md queue 1: 'Parallelism')")
-    if config.train_only is not None:
-        raise ValueError("train_only: freezing params (LoRA finetuning) is "
-                         "not ported yet (ROADMAP.md queue 1: 'Training, "
-                         "the rest')")
-    if config.loss_chunk > 0:
-        raise ValueError("loss_chunk > 0: the chunked cross entropy is not "
-                         "ported yet (ROADMAP.md queue 1: 'Training, the "
-                         "rest')")
-    if config.model_overrides.get('lora_rank', 0) > 0:
-        raise ValueError("lora_rank > 0: LoRA adapters are not ported yet "
-                         "(ROADMAP.md queue 1: 'Training, the rest')")
     if config.compilation_cache_dir is not None:
         raise ValueError("compilation_cache_dir: the port compiles nothing "
                          "per run; a persistent cache of built kernels "
@@ -92,6 +94,16 @@ def check_supported(config: TrainConfig) -> None:
         raise ValueError(f'grad_accum_steps ({config.grad_accum_steps}) '
                          f'must divide global_batch_size '
                          f'({config.global_batch_size})')
+    if config.loss_chunk and config.seq_len % config.loss_chunk:
+        raise ValueError(f'loss_chunk={config.loss_chunk} must divide '
+                         f'seq_len={config.seq_len}.')
+
+
+def trainable_mask(names, needle: str) -> Dict[str, bool]:
+    """True exactly for the names one of whose dotted parts contains
+    `needle` (the reference's `_trainable_mask` over flax paths: the
+    port's names are its paths, `layers.0.attention.q_proj_lora.a`)."""
+    return {n: any(needle in part for part in n.split('.')) for n in names}
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +135,8 @@ class OptState:
 class AdamW:
     """Global-norm clipping, then decoupled AdamW, as
     optax.chain(clip_by_global_norm(clip_norm), adamw(schedule, b1, b2,
-    eps, weight_decay)): weight decay on every parameter, the learning
+    eps, weight_decay)) over the parameters it is given (the trainable
+    ones): weight decay on each of them, the learning
     rate of update n (from 1) is schedule(n - 1), so the first update of
     a warmup from 0 moves nothing.  Updates parameters in place."""
 
@@ -212,18 +225,75 @@ def loss_fn(model, batch: Dict[str, torch.Tensor], *, kernel: str = 'auto'
                   'tokens': total}
 
 
+def _chunk_sums(head, hidden: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked CE sum and correct-prediction sum of one sequence chunk."""
+    logits = head(hidden)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         targets.reshape(-1).long(),
+                         reduction='none').reshape(mask.shape)
+    correct = ((logits.argmax(-1) == targets) * mask).sum()
+    return (ce * mask).sum(), correct
+
+
+def chunked_ce_sums(head, hidden: torch.Tensor, targets: torch.Tensor,
+                    mask: torch.Tensor, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's `_chunked_ce_sums`: masked CE sum and correct sum
+    of `head(hidden)` (f32 logits) taken one chunk of `chunk` positions
+    at a time, in order, each chunk checkpointed under autograd, so at
+    most [B, chunk, V] f32 logits are live in the forward and in the
+    backward."""
+    s = hidden.shape[1]
+    if s % chunk:
+        raise ValueError(f'loss_chunk={chunk} must divide seq_len={s}.')
+    ce_sum = hidden.new_zeros((), dtype=torch.float32)
+    correct = hidden.new_zeros((), dtype=torch.float32)
+    remat = torch.is_grad_enabled()
+    for i in range(0, s, chunk):
+        args = (head, hidden[:, i:i + chunk], targets[:, i:i + chunk],
+                mask[:, i:i + chunk])
+        ce_c, correct_c = (checkpoint_lib.checkpoint(
+            _chunk_sums, *args, use_reentrant=False) if remat
+            else _chunk_sums(*args))
+        ce_sum = ce_sum + ce_c
+        correct = correct + correct_c
+    return ce_sum, correct
+
+
+def loss_fn_chunked(model, batch: Dict[str, torch.Tensor], *, chunk: int,
+                    kernel: str = 'auto'
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """`loss_fn` with the head applied chunk by chunk
+    (`chunked_ce_sums`): the same loss, accuracy and gradients."""
+    hidden = model.train_forward(batch['inputs'], kernel=kernel,
+                                 return_hidden=True)
+    mask = batch['mask'].float()
+    total = mask.sum().clamp_min(1.0)
+    ce_sum, correct = chunked_ce_sums(model.head, hidden, batch['targets'],
+                                      mask, chunk)
+    loss = ce_sum / total
+    return loss, {'loss': loss.detach(), 'accuracy': correct / total,
+                  'tokens': total}
+
+
 def compute_grads(model, batch: Dict[str, torch.Tensor], *,
-                  grad_accum_steps: int = 1, kernel: str = 'auto'
-                  ) -> Dict[str, torch.Tensor]:
+                  grad_accum_steps: int = 1, kernel: str = 'auto',
+                  loss_chunk: int = 0) -> Dict[str, torch.Tensor]:
     """Leave the mean gradient over `grad_accum_steps` equal microbatches
-    in each parameter's `.grad`; return the mean metrics."""
+    in the `.grad` of each parameter that requires grad; return the mean
+    metrics.  `loss_chunk` > 0 takes `loss_fn_chunked`."""
     model.zero_grad(set_to_none=True)
     n = grad_accum_steps
     metrics: Dict[str, torch.Tensor] = {}
     for i in range(n):
         micro = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
                  for k, v in batch.items()}
-        loss, m = loss_fn(model, micro, kernel=kernel)
+        if loss_chunk:
+            loss, m = loss_fn_chunked(model, micro, chunk=loss_chunk,
+                                      kernel=kernel)
+        else:
+            loss, m = loss_fn(model, micro, kernel=kernel)
         (loss / n if n > 1 else loss).backward()
         for k, val in m.items():
             metrics[k] = metrics.get(k, 0.0) + val.detach() / n
@@ -232,11 +302,13 @@ def compute_grads(model, batch: Dict[str, torch.Tensor], *,
 
 def train_step(model, optimizer: AdamW, opt_state: OptState,
                batch: Dict[str, torch.Tensor], *, grad_accum_steps: int = 1,
-               kernel: str = 'auto') -> Dict[str, torch.Tensor]:
-    """One optimizer step in place; metrics as 0-d tensors, grad_norm
-    the global norm of the unclipped gradient."""
+               kernel: str = 'auto', loss_chunk: int = 0
+               ) -> Dict[str, torch.Tensor]:
+    """One optimizer step in place over the parameters that require
+    grad; metrics as 0-d tensors, grad_norm the global norm of their
+    unclipped gradient."""
     metrics = compute_grads(model, batch, grad_accum_steps=grad_accum_steps,
-                            kernel=kernel)
+                            kernel=kernel, loss_chunk=loss_chunk)
     params = {k: p for k, p in model.named_parameters() if p.requires_grad}
     grads = {k: p.grad for k, p in params.items()}
     metrics['grad_norm'] = global_norm(grads)
@@ -252,9 +324,8 @@ class Trainer:
         check_supported(config)
         self.config = config
         self.device = resolve_device(device)
-        overrides = dict(config.model_overrides)
-        overrides.pop('lora_rank', None)
-        self.model_config = models_lib.get_config(config.model, **overrides)
+        self.model_config = models_lib.get_config(
+            config.model, **config.model_overrides)
         self.optimizer = make_optimizer(config)
         self.model = None
         self.opt_state: Optional[OptState] = None
@@ -267,7 +338,9 @@ class Trainer:
     def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None
                    ) -> None:
         """Random weights from `config.seed`, or `params` (a state_dict,
-        e.g. `bridge.params_from_jax` of the reference's params)."""
+        e.g. `bridge.params_from_jax` of the reference's params); the
+        parameters `train_only` selects (all without it) require grad,
+        and the optimizer state covers them alone, at step 0."""
         from skypilot_tpu_torch.models import llama
         model = llama.Llama(self.model_config, self.device)
         if params is None:
@@ -276,9 +349,26 @@ class Trainer:
             model.init_weights(gen)
         else:
             model.load_state_dict(params)
-        model.requires_grad_(True)
+        needle = self.config.train_only
+        if needle is None:
+            model.requires_grad_(True)
+        else:
+            mask = trainable_mask(dict(model.named_parameters()), needle)
+            if not any(mask.values()):
+                raise ValueError(f'train_only={needle!r} matches no '
+                                 'parameter: nothing would train')
+            for name, p in model.named_parameters():
+                p.requires_grad_(mask[name])
         self.model = model
-        self.opt_state = self.optimizer.init(dict(model.named_parameters()))
+        self.reset_optimizer()
+
+    def trainable_params(self) -> Dict[str, torch.Tensor]:
+        return {k: p for k, p in self.model.named_parameters()
+                if p.requires_grad}
+
+    def reset_optimizer(self) -> None:
+        """Fresh optimizer state for the trainable parameters: step 0."""
+        self.opt_state = self.optimizer.init(self.trainable_params())
 
     def step(self, batch: Dict[str, torch.Tensor], *,
              kernel: str = 'auto') -> Dict[str, torch.Tensor]:
@@ -286,15 +376,17 @@ class Trainer:
             raise RuntimeError('call init_state() first')
         return train_step(self.model, self.optimizer, self.opt_state, batch,
                           grad_accum_steps=self.config.grad_accum_steps,
-                          kernel=kernel)
+                          kernel=kernel, loss_chunk=self.config.loss_chunk)
 
     def train(self, data_iter: Iterator[Dict[str, torch.Tensor]],
               num_steps: Optional[int] = None,
-              log_every: int = 10) -> Dict[str, float]:
+              log_every: int = 10, checkpoint_manager: Any = None,
+              checkpoint_every: int = 0) -> Dict[str, float]:
         """Run `num_steps` steps (default total_steps); every `log_every`
         steps and at the end, record loss, accuracy, grad_norm and
-        tokens/s of the window in `history` and print them.  Returns the
-        last record."""
+        tokens/s of the window in `history` and print them; with a
+        `checkpoint_manager` (train/checkpoint.py), save a checkpoint
+        after every `checkpoint_every` steps.  Returns the last record."""
         cfg = self.config
         if self.model is None:
             self.init_state()
@@ -325,4 +417,8 @@ class Trainer:
                       f'{last["tokens_per_sec"]:,.0f} tok/s', flush=True)
                 t0 = time.perf_counter()
                 window_steps = 0
+            if checkpoint_manager is not None and checkpoint_every and \
+                    (i + 1) % checkpoint_every == 0:
+                from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+                ckpt_lib.save(checkpoint_manager, self)
         return last

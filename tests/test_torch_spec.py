@@ -23,7 +23,7 @@ dim 64, vocab 96):
   - an eos inside an accepted run ends the request there, and
     max_new_tokens=1 runs no verify;
   - a draft of another vocabulary, and the flags speculation cannot
-    take, are refused.
+    take, are refused; a draft loads from a port checkpoint.
 """
 import jax
 import jax.numpy as jnp
@@ -40,6 +40,7 @@ from skypilot_tpu_torch.infer import engine as teng
 from skypilot_tpu_torch.infer import server as tserver
 from skypilot_tpu_torch.infer import speculative as tspec
 from skypilot_tpu_torch.models import llama as tllama
+from skypilot_tpu_torch.train import checkpoint as tckpt
 
 PS = 8
 K = 4
@@ -271,7 +272,7 @@ def test_eos_inside_accepted_run_and_one_token_budget(reference):
     assert eng.allocator_leak_report() is None
 
 
-def test_spec_arguments_refused(reference):
+def test_spec_arguments_refused(reference, tmp_path):
     sd, _ = reference
     with pytest.raises(ValueError, match='tokenizer family'):
         _port(sd, 'ngram', draft_model='llama-tiny',
@@ -286,10 +287,20 @@ def test_spec_arguments_refused(reference):
             tserver.InferenceServer(
                 model='llama-tiny', model_overrides=OV, params=sd,
                 continuous=False, device='cpu', **flags)
-    with pytest.raises(NotImplementedError, match='Checkpoint and launch'):
+    # A draft loads its weights from a port checkpoint.
+    tckpt.save_params(tckpt.make_manager(str(tmp_path)), sd)
+    srv = tserver.InferenceServer(
+        model='llama-tiny', model_overrides=OV, params=sd, spec_k=2,
+        draft_model='llama-tiny', draft_overrides=OV,
+        draft_checkpoint_dir=str(tmp_path), param_dtype=torch.float32,
+        device='cpu')
+    draft = srv.engine._draft.model.state_dict()
+    assert set(draft) == set(sd)
+    assert all(torch.equal(draft[k], sd[k]) for k in sd)
+    with pytest.raises(ValueError, match='--no-continuous'):
         tserver.InferenceServer(
-            model='llama-tiny', model_overrides=OV, params=sd, spec_k=2,
-            draft_model='llama-tiny', draft_checkpoint_dir='ckpt',
+            model='llama-tiny', model_overrides=OV, params=sd,
+            draft_checkpoint_dir=str(tmp_path), continuous=False,
             device='cpu')
     with pytest.raises(SystemExit):
         tserver.check_args(tserver.build_parser(), tserver.build_parser(
