@@ -190,12 +190,41 @@ Phases, any failure exits non-zero:
                equal an engine's given the same params in memory, kernels
                4 and 5 counted from 0 around it; then graph_check on the
                server's engine (the adapters inside the decode graphs).
+     serve_qwen - qwen2-7b whole (28 layers, 28 query heads over 4 KV
+               heads: a group of 7; q/k/v biases) through the server's
+               CLI path (`server_from_args`), serve's settings: the main
+               path (10 requests, kernels 4 and 5 counted from 0), decode
+               tokens/s, `first_step_check`, `graph_check`.
+     serve_mixtral - mixtral-8x7b at full width, 16 of its 32 layers
+               (MIXTRAL_SERVE_LAYERS), the same: the main path, decode
+               tokens/s, `moe_route_check` (kernels vs plain with each
+               run's routes read, the plain run also routed as the
+               kernels' run), `graph_check` with the MoE layers inside the
+               graph; then a --spec-k 4 server: one n-gram request, kernel
+               4 at S 5 under capacity.
+     serve_gpt2 - gpt2 (124 M) whole, max_seq_len 1024: the main path
+               (prompts up to 960 tokens; kernels 4 and 5 at d 64, 12
+               heads over 12, a group of 1), decode tokens/s,
+               `first_step_check`.
+     train_families - TRAIN_FAMILIES through the trainer's CLI, 5 steps
+               each (gpt2 whole 8 x 1024, qwen2-7b 4 layers 2 x 4096,
+               mixtral-8x7b 2 layers 1 x 4096), counts from 0: flash
+               forward 2 L steps, dq and dk/dv L steps; every loss,
+               aux_loss (Mixtral's > 0) and grad norm finite; then one
+               step kernels vs plain within FAMILY_TRAIN_LIMITS (Mixtral's
+               plain run routed as the kernels' run) and
+               FAMILY_MEMORIZE_STEPS steps on one batch whose loss must
+               fall.
+     The kernel phase's edge cases include these families' heads: G 1
+     at d 64 and G 7 at d 128 in DECODE_EDGES (S 1 and 5),
+     PREFILL_EDGES and FLASH_EDGES.
   6. summary - one JSON line {"kernels": [...]} with each kernel's route,
                source, the TPU kernel it replaces, its launches on its
                path (serve phase, serve_int8 phase, train phase) and in
-               every phase, finetune and checkpoint included
-               ("launches_by_phase"; kernel 4 also by S in
-               serve_spec, serve_mixed and serve_async, "launches_by_s"),
+               every phase, finetune, checkpoint and the families'
+               phases included ("launches_by_phase"; kernel 4 also by S
+               in serve_spec, serve_mixed, serve_async and serve_mixtral's
+               spec server, "launches_by_s"),
                error, times
                and bound (kernel 4's S 5 and S 64 cases in `cases`);
                the int8 entries carry "branch": "quant".
@@ -212,6 +241,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -320,6 +350,11 @@ FLASH_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
 FLASH_EDGES = (
     ('offset_700', 1, 32, 8, 1024, 128, None, 700),
     ('window_300_offset_200', 1, 32, 8, 1000, 64, 300, 200),
+    # The other families' heads: gpt2's (12 over 12: a group of 1, at d
+    # 64) at its training shape's sequence, qwen2-7b's (28 over 4: the
+    # dk/dv group sum over 7 heads).
+    ('gpt2_g1_d64', 2, 12, 12, 1024, 64, None, 0),
+    ('qwen2_7b_g7', 1, 28, 4, 2048, 128, None, 0),
 )
 
 
@@ -583,10 +618,19 @@ DECODE_EDGES = (
     ('d64', (1500, 17), 1, 64, PS, DTYPE, None),
     ('f16_q', (1500, 17), 1, D, PS, torch.float16, None),
     ('f32_q', (1500, 17), 1, D, PS, torch.float32, None),
+    # The other families' heads (an 8th field: query heads, KV heads):
+    # gpt2's 12 over 12 at d 64 (a group of 1: each 4-row block carries 3
+    # idle rows) and qwen2-7b's 28 over 4 (a group of 7: blocks straddle
+    # query heads; at S 5, 35 rows in 9 blocks), at S 1 and S 5.
+    ('gpt2_g1_d64', (1000, 300, 17), 1, 64, PS, DTYPE, None, (12, 12)),
+    ('gpt2_g1_d64_s5', (900, 40), 5, 64, PS, DTYPE, None, (12, 12)),
+    ('qwen2_7b_g7', (3000, 300, 17), 1, D, PS, DTYPE, None, (28, 4)),
+    ('qwen2_7b_g7_s5', (900, 40), 5, D, PS, DTYPE, None, (28, 4)),
 )
 
 
-def _decode_edge_inputs(dev, seed, ctxs, s, d, ps, dtype, window, quant):
+def _decode_edge_inputs(dev, seed, ctxs, s, d, ps, dtype, window, quant,
+                        h=H, kvh=KVH):
     from skypilot_tpu_torch.ops import grouped_attention as ga
     g = torch.Generator().manual_seed(seed)
     b = len(ctxs)
@@ -602,9 +646,9 @@ def _decode_edge_inputs(dev, seed, ctxs, s, d, ps, dtype, window, quant):
             lo = 0 if window is None else max(0, c + qi - window)
             mask[i, 0, qi, lo:c + qi] = True
         table[i, -(-(c + s - 1) // ps):] = 0
-    pk, pv = (torch.randn(n_pages, KVH, ps, d, generator=g).to(dtype)
+    pk, pv = (torch.randn(n_pages, kvh, ps, d, generator=g).to(dtype)
               for _ in range(2))
-    q = torch.randn(b, H, s, d, generator=g).to(dtype)
+    q = torch.randn(b, h, s, d, generator=g).to(dtype)
     scales = {}
     if quant:
         pk, ks = ga.quantize_int8_rows(pk)
@@ -622,10 +666,12 @@ def _decode_edges(dev, name, quant):
     case; returns one case dict each (max_abs_err, no times)."""
     from skypilot_tpu_torch.ops import paged_attention as pa
     out = []
-    for ci, (case, ctxs, s, d, ps, dtype, window) in enumerate(
+    for ci, (case, ctxs, s, d, ps, dtype, window, *heads) in enumerate(
             DECODE_EDGES):
         runs = [_decode_edge_inputs(dev, 100 + 2 * ci + k, ctxs, s, d, ps,
-                                    dtype, window, quant) for k in range(2)]
+                                    dtype, window, quant,
+                                    *(heads[0] if heads else ()))
+                for k in range(2)]
         gots = [pa.paged_decode_attention(*args, scale=d ** -0.5,
                                           probs_dtype=dtype, **scales)
                 for args, scales in runs]
@@ -634,7 +680,8 @@ def _decode_edges(dev, name, quant):
             dtype, U_BF16)
         err = max(check_kernel(
             f'{name} {case} call {k + 1} (contexts {list(ctxs)}, S {s}, '
-            f'd {d}, page {ps}, {dtype}, window {window})', got,
+            f'd {d}, page {ps}, {dtype}, window {window}, heads '
+            f'{heads[0] if heads else (H, KVH)})', got,
             pa.paged_decode_attention_plain, tuple(args),
             dict(scale=d ** -0.5, **scales), probs_rounded=False, u=u)
             for k, (got, (args, scales)) in enumerate(zip(gots, runs)))
@@ -656,15 +703,19 @@ PREFILL_EDGES = (
     ('f16', 512, 128, 16, 1536, torch.float16, False, None),
     ('ps8', 512, 128, 8, 1536, DTYPE, False, None),
     ('ps32_base_mid_page', 512, 128, 32, 1541, DTYPE, False, None),
+    # gpt2's heads at d 64 (12 over 12) and qwen2-7b's (28 over 4): a
+    # 9th field, (query heads, KV heads).
+    ('gpt2_g1_d64', 512, 64, 16, 512, DTYPE, False, None, (12, 12)),
+    ('qwen2_7b_g7', 512, 128, 16, 1536, DTYPE, False, None, (28, 4)),
 )
 PREFILL_MAX_LEN, PREFILL_TRUE_LEN = 4096, 3000
 
 
-def _prefill_cache(dev, g, quant, d=D, dtype=DTYPE):
-    """keys, values [1, KVH, 4096, d] (int8 with f32 scales when `quant`),
+def _prefill_cache(dev, g, quant, d=D, dtype=DTYPE, kvh=KVH):
+    """keys, values [1, kvh, 4096, d] (int8 with f32 scales when `quant`),
     their scales as kwargs, and the library yardstick's K/V."""
     from skypilot_tpu_torch.ops import grouped_attention as ga
-    shape = (1, KVH, PREFILL_MAX_LEN, d)
+    shape = (1, kvh, PREFILL_MAX_LEN, d)
     keys = torch.randn(*shape, generator=g, device=dev, dtype=dtype)
     values = torch.randn(*shape, generator=g, device=dev, dtype=dtype)
     if not quant:
@@ -680,10 +731,13 @@ def _prefill_edges(dev, name, quant):
     returns one case dict each (max_abs_err, no times)."""
     from skypilot_tpu_torch.ops import ragged_prefill as rp
     out = []
-    for case, s, d, ps, base, dtype, permuted, window in PREFILL_EDGES:
+    for case, s, d, ps, base, dtype, permuted, window, *heads in \
+            PREFILL_EDGES:
+        h, kvh = heads[0] if heads else (H, KVH)
         g = torch.Generator(device=dev).manual_seed(5)
-        keys, values, scales, _ = _prefill_cache(dev, g, quant, d, dtype)
-        qp = torch.randn(1, H, s, d, generator=g, device=dev, dtype=dtype)
+        keys, values, scales, _ = _prefill_cache(dev, g, quant, d, dtype,
+                                                 kvh)
+        qp = torch.randn(1, h, s, d, generator=g, device=dev, dtype=dtype)
         n_pages = PREFILL_MAX_LEN // ps
         if permuted:
             walk = torch.randperm(n_pages, generator=g, device=dev)
@@ -699,7 +753,7 @@ def _prefill_edges(dev, name, quant):
         torch.cuda.synchronize()
         err = check_kernel(
             f'{name} {case} (S {s}, d {d}, page {ps}, base {base}, '
-            f'{dtype}, window {window})', got,
+            f'{dtype}, window {window}, heads {h}/{kvh})', got,
             rp.ragged_prefill_attention_plain,
             (qp, keys, values, tbl, base, kv_mask), kw, probs_rounded=True,
             u=2.0 ** -11 if dtype == torch.float16 else U_BF16)
@@ -833,9 +887,10 @@ def _flash_work(b, h, kvh, s, d, window):
     }
 
 
-def _flash_case(dev, seed, case, b, h, kvh, s, d, window, offset=0):
+def _flash_case(dev, seed, case, b, h, kvh, s, d, window, offset=0,
+                timed=True):
     """Check one flash case; time it at the training shape (and only
-    the forward in the other FLASH_CASES, nothing at an offset).
+    the forward in the other FLASH_CASES, nothing in FLASH_EDGES).
     Returns (max_abs_err, (ms, plain_ms), library_ms) per kernel name."""
     from skypilot_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -865,7 +920,7 @@ def _flash_case(dev, seed, case, b, h, kvh, s, d, window, offset=0):
     del dq32, dk32, dv32, f32, tol
     errs = dict(zip(FLASH_KERNELS, (err_f, err_dq, err_dkv)))
     fwd = lambda: fa.flash_fwd(q, k, v, **kw)
-    if offset:
+    if not timed:
         return errs, {}, {}
     if case != 'train':
         return errs, {'flash_fwd': (time_ms(fwd), None)}, {}
@@ -925,7 +980,7 @@ def phase_flash_kernels(dev) -> dict:
     for ci, (case, b, h, kvh, s, d, window, offset) in enumerate(
             FLASH_EDGES):
         errs = _flash_case(dev, 20 + ci, case, b, h, kvh, s, d, window,
-                           offset)[0]
+                           offset, timed=False)[0]
         torch.cuda.empty_cache()
         for name in FLASH_KERNELS:
             results[name]['cases'].append(dict(case=case,
@@ -1031,17 +1086,19 @@ def _check_branches(launches: dict, kv_cache_dtype: str, tag: str) -> None:
 
 
 def _serve_main_path(url: str, vocab: int, rng, kv_cache_dtype: str,
-                     tag=None):
+                     tag=None, lens=(GREEDY_LENS, SAMPLED_LENS)):
     """The main path: 8 concurrent greedy and 2 sampled /generate
-    requests, with every launch count set to 0 just before and read just
-    after.  Returns (completions, launches, the requests)."""
+    requests (prompt lengths `lens`), with every launch count set to 0
+    just before and read just after.  Returns (completions, launches,
+    the requests)."""
     tag = tag or kv_cache_dtype
+    greedy_lens, sampled_lens = lens
     reqs = [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
                  max_new_tokens=SERVE_NEW, temperature=0.0)
-            for n in GREEDY_LENS]
+            for n in greedy_lens]
     reqs += [dict(prompt_ids=[rng.randint(0, vocab, n).tolist()],
                   max_new_tokens=SERVE_NEW, temperature=0.8, top_k=50,
-                  top_p=0.9, seed=i) for i, n in enumerate(SAMPLED_LENS)]
+                  top_p=0.9, seed=i) for i, n in enumerate(sampled_lens)]
     _reset_launch_counts()
     out, burst_s = _post_all(url, reqs)
     launches = _launch_counts()
@@ -1049,7 +1106,7 @@ def _serve_main_path(url: str, vocab: int, rng, kv_cache_dtype: str,
         if len(toks) != SERVE_NEW or not all(0 <= t < vocab for t in toks):
             raise AssertionError(f'bad completion: {toks}')
     log(f'serve[{tag}]: {len(reqs)} concurrent requests, '
-        f'{sum(GREEDY_LENS + SAMPLED_LENS)} prompt tokens, '
+        f'{sum(greedy_lens) + sum(sampled_lens)} prompt tokens, '
         f'{len(reqs) * SERVE_NEW} generated, in {burst_s:.2f}s; launches '
         f'{launches}')
     _check_branches(launches, kv_cache_dtype, tag)
@@ -2692,6 +2749,419 @@ def phase_checkpoint(dev, card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the other families: qwen2-7b, mixtral-8x7b and gpt2, served and trained
+# ---------------------------------------------------------------------------
+# Served as serve's llama3-8b is: the server's CLI path
+# (`server_from_args`), random bf16 weights from the engine's seed 0, page
+# 16, prefill chunk 512, 8 slots, the default pipeline with decode graphs.
+FAMILY_SERVE_ARGS = ('--page-size', '16', '--prefill-chunk', '512',
+                     '--max-batch-size', '8', '--allow-random-weights',
+                     '--port', '0', '--host', '127.0.0.1')
+# Mixtral-8x7b at full width, cut to 16 of its 32 layers: each layer holds
+# 1.451 B parameters (1.409 B of them its 8 experts), 2.9 GB in bf16, so
+# 16 layers are 46.4 GB beside the f32 head (0.5 GB) and the page pool
+# (2.15 GB at 16 layers); 32 layers (92.9 GB) do not fit the card.
+MIXTRAL_SERVE_LAYERS = 16
+# gpt2 (124 M) whole: max_seq_len is its pos_embed's 1024 rows, so the
+# prompts stay under 1024 - SERVE_NEW.
+GPT2_LENS = ([40, 100, 200, 300, 450, 600, 800, 960], [150, 500])
+# Training, 5 steps each through the trainer's CLI, as train's llama3-8b
+# (f32 params, grads and two AdamW moments: 16 bytes a parameter):
+#   gpt2 whole, batch 8 x 1024: 124 M parameters, 2.0 GB;
+#   qwen2-7b at 4 of its 28 layers, batch 2 x 4096: 4 x 233 M in the
+#     layers and 2 x 545 M in the embedding and head, 32 GB (at full
+#     depth 122 GB would not fit);
+#   mixtral-8x7b at 2 of its 32 layers, batch 1 x 4096: 2 x 1.451 B in
+#     the layers and 2 x 131 M in the embedding and head, 50.6 GB.
+# (model, overrides, batch, seq)
+TRAIN_FAMILIES = (
+    ('gpt2', {}, 8, 1024),
+    ('qwen2-7b', {'n_layers': 4}, 2, 4096),
+    ('mixtral-8x7b', {'n_layers': 2}, 1, 4096),
+)
+# Steps on one repeated batch (warmup 2) whose loss must fall.
+FAMILY_MEMORIZE_STEPS = 4
+# One step, kernels vs plain versions, (loss, grad norm) relative gaps:
+# the train phase's limits (TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL),
+# unless a family is named here.  gpt2 whole (12 layers, 12 heads at d 64,
+# batch 8 x 1024) read a grad-norm gap of 7.79e-5 on two H100 runs (loss
+# 7.90e-6), over the llama3-8b-derived 5e-5, while its kernels held their
+# rounding bounds at its heads (FLASH_EDGES gpt2_g1_d64); its limits are
+# set as the train phase's were, about 10x the reading.  A family named
+# here also runs the checked step at f32 compute (the plain versions, the
+# same weights and batch): a reading of how far the kernels' run and the
+# plain bf16 run each are from it.
+FAMILY_TRAIN_LIMITS = {'gpt2': (1e-4, 8e-4)}
+
+
+def _family_server(dev, model: str, max_seq_len: int, overrides=None,
+                   extra=()):
+    """The CLI's server for `model` (FAMILY_SERVE_ARGS), serving on a free
+    localhost port; returns (server, its HTTP thread, base url)."""
+    from skypilot_tpu_torch.infer import server as server_lib
+    argv = ['--model', model, '--max-seq-len', str(max_seq_len),
+            '--device', str(dev), *FAMILY_SERVE_ARGS, *extra]
+    if overrides:
+        argv += ['--model-overrides', json.dumps(overrides)]
+    t0 = time.perf_counter()
+    srv = server_lib.server_from_args(argv)
+    eng = srv.engine
+    cfg = eng.config
+    log(f'serve[{model}]: dim {cfg.dim} layers {cfg.n_layers} heads '
+        f'{cfg.n_heads}/{cfg.n_kv_heads} (group {cfg.n_heads // cfg.n_kv_heads}'
+        f') head_dim {cfg.head_dim} ffn {cfg.ffn_dim} vocab '
+        f'{cfg.vocab_size}, {type(eng.model).__name__}, {list(extra)}; '
+        f'weights {weight_bytes(eng) / 1e9:.2f} GB, page pool '
+        f'{eng._cache.nbytes() / 1e9:.2f} GB; ready in '  # pylint: disable=protected-access
+        f'{time.perf_counter() - t0:.1f}s, '
+        f'{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated')
+    if (eng.decode_kernel, eng.prefill_kernel) != ('fused', 'fused'):
+        raise AssertionError(f'{model}: serving runs no kernel')
+    srv.start()
+    http_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    http_thread.start()
+    return srv, http_thread, f'http://127.0.0.1:{srv.port}'
+
+
+def _stop(srv, http_thread) -> None:
+    srv.shutdown()
+    http_thread.join(timeout=30)
+
+
+def phase_serve_qwen(dev) -> dict:
+    """qwen2-7b whole: 28 layers, 28 query heads over 4 KV heads (a group
+    of 7, not a multiple of kernel 4's 4-row blocks), q/k/v biases, an
+    untied head; 7.62 B parameters, 15.2 GB in bf16.  The main path (10
+    requests, kernels 4 and 5 counted), decode tokens/s, the first decode
+    step kernels vs plain, a decode step replayed vs eager."""
+    srv, http_thread, url = _family_server(dev, 'qwen2-7b', 4096)
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    rng = np.random.RandomState(41)
+    _, launches, _ = _serve_main_path(url, vocab, rng, 'auto',
+                                      tag='qwen2-7b')
+    tps = _decode_rate(url, eng, rng, 'qwen2-7b')
+    log(f'serve_qwen: decode {tps:.1f} tokens/s at batch 8 (33- minus '
+        '1-token runs over HTTP)')
+    _stop(srv, http_thread)
+    first_step_check(eng, rng.randint(0, vocab, 700).tolist(), 'serve_qwen')
+    graph_check(eng, vocab, 'serve_qwen')
+    eng.close()
+    del srv, eng
+    _free()
+    return dict(launches=launches, decode_tps=tps)
+
+
+@contextlib.contextmanager
+def moe_routes(model, record: dict, force=None):
+    """Within: every MoE layer of `model` records the experts [T, k] its
+    router picks, by layer index, into `record` (the first call of each
+    layer: a forward, not the backward's rerun of it); with `force` (an
+    earlier run's record of the same forward) each layer takes the
+    experts of `force` instead, its gates renormalised from its own
+    router probabilities.  Forward pre-hooks on the MoE layers say which
+    layer routes; `moe.route` is wrapped for the duration.  For holding
+    two runs of the same forward against each other where a flipped
+    route would otherwise decide the comparison."""
+    from skypilot_tpu_torch.models import moe as moe_lib
+    route = moe_lib.route
+    layer = [None]
+
+    def routed(cfg, logits):
+        gates, experts, aux = route(cfg, logits)
+        if force is not None:
+            experts = force[layer[0]]
+            probs = torch.softmax(logits, dim=-1).gather(1, experts)
+            gates = probs / probs.sum(-1, keepdim=True)
+        record.setdefault(layer[0], experts)
+        return gates, experts, aux
+
+    def at(i):
+        def hook(mod, args):
+            layer[0] = i
+        return hook
+
+    handles = [blk.moe_mlp.register_forward_pre_hook(at(i))
+               for i, blk in enumerate(model.layers)]
+    moe_lib.route = routed
+    try:
+        yield record
+    finally:
+        moe_lib.route = route
+        for h in handles:
+            h.remove()
+
+
+def _route_flips(a: dict, b: dict, rows=None) -> list:
+    """Routes (token, choice) that differ between two records, by layer."""
+    return [int((a[i][rows] != b[i][rows]).sum()) if rows is not None
+            else int((a[i] != b[i]).sum()) for i in sorted(a)]
+
+
+def moe_route_check(eng, vocab: int, tag: str) -> dict:
+    """The next decode step of 8 live requests (40-3000 tokens) through
+    the kernels and through their plain versions.  bf16 attention
+    through other roundings can flip a near-tie of a router; one flipped
+    route moves its token's output far more than the rounding does, and,
+    with capacity counted over the step's 8 tokens, also which routes of
+    the other tokens are dropped, so flips cascade through the layers.
+    Printed: how many (token, layer, choice) routes differ between the
+    two runs, by layer, and the tokens whose routes all agree.  Held to
+    LOGITS_REL_TOL of max |logit|: the logits at every token of the
+    kernels' run against a plain run routed as the kernels' run was
+    (`moe_routes`), where only the attention's rounding differs; and,
+    where a token's routes all agree, at that token between the free
+    runs."""
+    rng = np.random.RandomState(23)
+    rids = _live(eng, [rng.randint(0, vocab, n).tolist()
+                       for n in GREEDY_LENS], SERVE_NEW)
+    rows = [i for i, s in enumerate(eng._slots) if s is not None]  # pylint: disable=protected-access
+    fused_routes, plain_routes = {}, {}
+    with moe_routes(eng.model, fused_routes):
+        fused = eng.decode_logits('fused').float()
+    with moe_routes(eng.model, plain_routes):
+        plain = eng.decode_logits('plain').float()
+    with moe_routes(eng.model, {}, force=fused_routes):
+        forced = eng.decode_logits('plain').float()
+    flips = _route_flips(fused_routes, plain_routes, rows)
+    agree = [r for r in rows if not any(
+        (fused_routes[i][r] != plain_routes[i][r]).any()
+        for i in fused_routes)]
+    gap = _logit_gap(fused[rows], forced[rows])
+    free_gap = (_logit_gap(fused[agree], plain[agree]) if agree
+                else float('nan'))
+    n_routes = len(fused_routes) * len(rows) * eng.config.experts_per_token
+    log(f'{tag}: a decode step of {len(rows)} rows, kernels vs plain: '
+        f'{sum(flips)} of {n_routes} (token, layer, choice) routes differ '
+        f'(by layer {flips}); {len(agree)} tokens agree on every route, '
+        f'their logits max abs diff over max |logit| {free_gap:.4e}; every '
+        f'token against the plain run routed as the kernels\' run: '
+        f'{gap:.4e} (limit {LOGITS_REL_TOL})')
+    _drop(eng, rids)
+    if not (gap <= LOGITS_REL_TOL and not free_gap > LOGITS_REL_TOL):
+        raise AssertionError(f'{tag}: kernel logits disagree with the plain '
+                             'path')
+    return dict(routes_differ=sum(flips), routes=n_routes, agree=len(agree),
+                gap=gap, free_gap=free_gap)
+
+
+def phase_serve_mixtral(dev) -> dict:
+    """mixtral-8x7b at full width, 16 of its 32 layers (MIXTRAL_SERVE_LAYERS:
+    46.4 GB of bf16 weights), 32 query heads over 8 (a group of 4), 8
+    experts, 2 a token, capacity 1.25: at a decode step of 8 rows that is
+    2 routes an expert.  The main path (10 requests), decode tokens/s, the
+    kernels-vs-plain check with the routes of both runs
+    (`moe_route_check`), a decode step (the MoE layers inside) replayed
+    from its CUDA graph vs eager; then a server with --spec-k 4: one
+    n-gram request, so kernel 4 runs at S 5 under capacity."""
+    overrides = {'n_layers': MIXTRAL_SERVE_LAYERS}
+    srv, http_thread, url = _family_server(dev, 'mixtral-8x7b', 4096,
+                                           overrides)
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    rng = np.random.RandomState(43)
+    _, launches, _ = _serve_main_path(url, vocab, rng, 'auto',
+                                      tag='mixtral-8x7b')
+    tps = _decode_rate(url, eng, rng, 'mixtral-8x7b')
+    log(f'serve_mixtral: decode {tps:.1f} tokens/s at batch 8 (33- minus '
+        '1-token runs over HTTP)')
+    _stop(srv, http_thread)
+    routes = moe_route_check(eng, vocab, 'serve_mixtral')
+    graph_check(eng, vocab, 'serve_mixtral')
+    eng.close()
+    del srv, eng
+    _free()
+
+    srv, http_thread, url = _family_server(
+        dev, 'mixtral-8x7b', 4096, overrides, extra=('--spec-k', '4'))
+    eng = srv.engine
+    prompt = template_prompts(vocab, 44)[0]
+    _reset_launch_counts()
+    toks = _post(url + '/generate', dict(prompt_ids=[prompt],
+                                         max_new_tokens=SPEC_NEW,
+                                         temperature=0.0))['tokens'][0]
+    spec_launches = _launch_counts()
+    by_s = _by_s()
+    info = eng.speculation_info()
+    log(f'serve_mixtral spec: one n-gram request of {len(prompt)} tokens, '
+        f'{len(toks)} generated; launches {spec_launches}, kernel 4 by S '
+        f'{by_s}; speculation {info}')
+    _stop(srv, http_thread)
+    if len(toks) != SPEC_NEW or not all(0 <= t < vocab for t in toks):
+        raise AssertionError(f'serve_mixtral spec: bad completion {toks}')
+    if by_s['float'].get(SPEC_K + 1, 0) <= 0 or \
+            spec_launches['ragged_prefill'] <= 0:
+        raise AssertionError('serve_mixtral spec: kernel 4 did not run at '
+                             f'S {SPEC_K + 1}, or kernel 5 did not run')
+    eng.close()
+    del srv, eng
+    _free()
+    return dict(launches=launches, spec_launches=spec_launches,
+                by_s=by_s, decode_tps=tps, routes=routes)
+
+
+def phase_serve_gpt2(dev) -> dict:
+    """gpt2 (124 M) whole, max_seq_len 1024: multi-head attention (12
+    heads over 12, a group of 1) at head_dim 64, learned positions, the
+    tied head.  The main path (10 requests of up to 960 tokens), decode
+    tokens/s, the first decode step kernels vs plain."""
+    srv, http_thread, url = _family_server(dev, 'gpt2', 1024)
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    rng = np.random.RandomState(47)
+    _, launches, _ = _serve_main_path(url, vocab, rng, 'auto', tag='gpt2',
+                                      lens=GPT2_LENS)
+    tps = _decode_rate(url, eng, rng, 'gpt2')
+    log(f'serve_gpt2: decode {tps:.1f} tokens/s at batch 8 (33- minus '
+        '1-token runs over HTTP)')
+    _stop(srv, http_thread)
+    first_step_check(eng, rng.randint(0, vocab, 600).tolist(), 'serve_gpt2')
+    eng.close()
+    del srv, eng
+    _free()
+    return dict(launches=launches, decode_tps=tps)
+
+
+def family_gaps_and_memorize(dev, model: str, overrides: dict, batch: int,
+                             seq: int) -> dict:
+    """One step's loss and global grad norm with the kernels and with their
+    plain versions at one batch and the same weights, within
+    FAMILY_TRAIN_LIMITS; a MoE model's plain run is routed as the kernels'
+    run was (`moe_routes`), and its free run's gaps are printed beside.
+    Then FAMILY_MEMORIZE_STEPS steps on that batch (warmup 2): the loss
+    must fall.  Returns the gaps."""
+    from skypilot_tpu_torch.train import data as data_lib
+    from skypilot_tpu_torch.train import trainer as trainer_lib
+    config = trainer_lib.TrainConfig(
+        model=model, global_batch_size=batch, seq_len=seq, warmup_steps=2,
+        total_steps=20, model_overrides=dict(overrides, max_seq_len=seq))
+    tr = trainer_lib.Trainer(config, device=dev)
+    tr.init_state()
+    data = next(data_lib.synthetic_data(batch, seq,
+                                        tr.model_config.vocab_size, seed=1,
+                                        device=dev))
+    moe = hasattr(tr.model.layers[0], 'moe_mlp')
+
+    def step(kernel, trainer=tr, **routes):
+        model = trainer.model
+        ctx = (moe_routes(model, **routes) if moe
+               else contextlib.nullcontext())
+        with ctx:
+            m = trainer_lib.compute_grads(model, data, kernel=kernel)
+        gn = trainer_lib.global_norm({k: p.grad for k, p in
+                                      model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+        return float(m['loss']), float(m['aux_loss']), float(gn)
+
+    def rel(a, b):
+        return (abs(a[0] - b[0]) / abs(b[0]), abs(a[2] - b[2]) / abs(b[2]))
+
+    routes = {}
+    fused = step('fused', record=routes)
+    plain = step('xla', record={}, force=routes) if moe else step('xla')
+    gaps = rel(fused, plain)
+    if model in FAMILY_TRAIN_LIMITS:
+        f32 = trainer_lib.Trainer(dataclasses.replace(
+            config, model_overrides=dict(config.model_overrides,
+                                         dtype='float32')), device=dev)
+        f32.init_state({k: v.detach() for k, v in
+                        tr.model.state_dict().items()})
+        ref = step('xla', trainer=f32)
+        log(f'train_families[{model}]: against the same step at f32 '
+            f'(plain versions): the kernels\' run rel gaps '
+            f'{rel(fused, ref)[0]:.3e} (loss) and {rel(fused, ref)[1]:.3e} '
+            f'(grad norm); the plain bf16 run {rel(plain, ref)[0]:.3e} and '
+            f'{rel(plain, ref)[1]:.3e}')
+        del f32
+    loss_tol, norm_tol = FAMILY_TRAIN_LIMITS.get(
+        model, (TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL))
+    free = ''
+    if moe:
+        free_routes = {}
+        free_gaps = rel(fused, step('xla', record=free_routes))
+        free = (f'; the free plain run ({sum(_route_flips(routes, free_routes))}'
+                f' of {sum(r.numel() for r in routes.values())} routes '
+                f'differ): rel gaps {free_gaps[0]:.3e} and {free_gaps[1]:.3e}')
+    log(f'train_families[{model}]: one step, kernels vs plain: loss '
+        f'{fused[0]:.6f} vs {plain[0]:.6f} (rel gap {gaps[0]:.3e}, limit '
+        f'{loss_tol}); aux_loss {fused[1]:.6f} vs {plain[1]:.6f}; grad norm '
+        f'{fused[2]:.6f} vs {plain[2]:.6f} (rel gap {gaps[1]:.3e}, limit '
+        f'{norm_tol}){free}')
+    if not (np.isfinite([*fused, *gaps]).all() and gaps[0] <= loss_tol
+            and gaps[1] <= norm_tol):
+        raise AssertionError(f'train_families[{model}]: kernels disagree '
+                             'with the plain versions')
+    losses = [float(tr.step(data)['loss'])
+              for _ in range(FAMILY_MEMORIZE_STEPS)]
+    log(f'train_families[{model}]: {FAMILY_MEMORIZE_STEPS} steps on one '
+        f'repeated batch: losses {[round(x, 4) for x in losses]}')
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f'train_families[{model}]: loss did not fall '
+                             'on a repeated batch')
+    del tr, data
+    _free()
+    return dict(loss_gap=gaps[0], grad_norm_gap=gaps[1])
+
+
+def phase_train_families(dev) -> dict:
+    """TRAIN_FAMILIES through `python -m skypilot_tpu_torch.train` (its
+    `main`), 5 steps each, every count set to 0 just before and read just
+    after: flash forward 2 L steps (remat reruns it), dq and dk/dv L steps
+    each, the serving kernels 0; every loss, aux_loss and grad_norm
+    finite.  Then `family_gaps_and_memorize`.  Returns the launches by
+    family."""
+    from skypilot_tpu_torch import models as models_lib
+    from skypilot_tpu_torch.train import __main__ as train_main
+    out = {}
+    for model, overrides, batch, seq in TRAIN_FAMILIES:
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        argv = ['--model', model, '--model-overrides', json.dumps(overrides),
+                '--global-batch-size', str(batch), '--seq-len', str(seq),
+                '--steps', str(TRAIN_STEPS), '--log-every', '1',
+                '--device', str(dev)]
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = train_main.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        L = models_lib.get_config(model, **overrides).n_layers
+        n = TRAIN_STEPS
+        want = {'paged_decode': 0, 'ragged_prefill': 0,
+                'paged_decode_int8': 0, 'ragged_prefill_int8': 0,
+                'flash_fwd': 2 * L * n, 'flash_bwd_dq': L * n,
+                'flash_bwd_dkv': L * n}
+        hist = metrics['history']
+        log(f'train_families[{model}]: {L} layers, batch {batch} x seq {seq}, '
+            f'{n} steps in {wall:.1f}s (model init included), '
+            f'{metrics["n_params"]} parameters; launches {launches}, '
+            f'expected {want}; peak memory allocated '
+            f'{metrics["peak_memory_bytes"] / 2**30:.2f} GiB')
+        for r in hist:
+            log(f'train_families[{model}] step {r["step"]}: loss '
+                f'{r["loss"]:.4f} aux_loss {r["aux_loss"]:.6f} grad_norm '
+                f'{r["grad_norm"]:.4f} step {r["step_ms"]:.1f} ms '
+                f'{r["tokens_per_sec"]:.1f} tokens/s')
+        if launches != want:
+            raise AssertionError(f'train_families[{model}] launches '
+                                 f'{launches} != {want}')
+        if len(hist) != n or not all(
+                np.isfinite([r['loss'], r['aux_loss'], r['grad_norm']]).all()
+                for r in hist):
+            raise AssertionError(f'train_families[{model}]: missing or '
+                                 f'non-finite steps: {hist}')
+        if model.startswith('mixtral') and not all(r['aux_loss'] > 0
+                                                   for r in hist):
+            raise AssertionError('train_families: no router aux loss')
+        del metrics
+        _free()
+        family_gaps_and_memorize(dev, model, overrides, batch, seq)
+        out[model] = launches
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2743,6 +3213,17 @@ def main() -> int:
     lap('finetune')
     by_phase['checkpoint'] = phase_checkpoint(dev, card)['launches']
     lap('checkpoint')
+    by_phase['serve_qwen'] = phase_serve_qwen(dev)['launches']
+    lap('serve_qwen')
+    mixtral = phase_serve_mixtral(dev)
+    by_phase['serve_mixtral'] = mixtral['launches']
+    by_phase['serve_mixtral_spec'] = mixtral['spec_launches']
+    lap('serve_mixtral')
+    by_phase['serve_gpt2'] = phase_serve_gpt2(dev)['launches']
+    lap('serve_gpt2')
+    for model, counts in phase_train_families(dev).items():
+        by_phase[f'train_families:{model}'] = counts
+    lap('train_families')
     entries = []
     for name, src, replaces in (
             ('paged_decode', 'paged_decode',
@@ -2772,6 +3253,8 @@ def main() -> int:
                 for phase, runs in (('serve_spec', spec),
                                     ('serve_mixed', mixed))},
                 serve_async=pipelined['by_s'][
+                    'int8' if name.endswith('_int8') else 'float'],
+                serve_mixtral_spec=mixtral['by_s'][
                     'int8' if name.endswith('_int8') else 'float'])}
                if name.startswith('paged_decode') else {}),
             **({'branch': 'quant'} if name.endswith('_int8') else {}),

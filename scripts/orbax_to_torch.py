@@ -9,8 +9,9 @@ into the port's format (skypilot_tpu_torch/train/checkpoint.py).
 Reads one step of the source (the latest unless --src-step) in the
 reference's split layout (Composite items params / opt_state / step),
 passes its params through `skypilot_tpu_torch.bridge.params_from_jax`
-(scanned or unscanned layers, LoRA adapters; --model and
---model-overrides name the config, as for the trainer) and writes the
+(any ported family: llama, qwen, gpt2, Mixtral; scanned or unscanned
+layers, LoRA adapters; --model and --model-overrides name the config, as
+for the trainer) and writes the
 port's checkpoint under --dst:
 
   - by default a resumable checkpoint at the saved step: params, the
@@ -42,7 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import torch  # noqa: E402
 
 from skypilot_tpu_torch import bridge  # noqa: E402
-from skypilot_tpu_torch.models import llama  # noqa: E402
+from skypilot_tpu_torch import models as models_lib  # noqa: E402
 from skypilot_tpu_torch.train import checkpoint as ckpt_lib  # noqa: E402
 
 
@@ -119,7 +120,7 @@ def convert(src: str, dst: str, *, model: str,
         items['opt_state'] = ocp.args.StandardRestore()
     restored = manager.restore(saved, args=ocp.args.Composite(**items))
     manager.close()
-    cfg = llama.get_config(model, **(model_overrides or {}))
+    cfg = models_lib.get_config(model, **(model_overrides or {}))
     params_np = _numpy(restored['params'])
     params = bridge.params_from_jax(params_np, cfg)
     out = ckpt_lib.make_manager(dst)

@@ -110,7 +110,8 @@ from skypilot_tpu_torch.infer import graphs as graphs_lib
 from skypilot_tpu_torch.infer import paging as paging_lib
 from skypilot_tpu_torch.infer import speculative as spec_lib
 from skypilot_tpu_torch.models.llama import (PagedCache, PrefillCache,
-                                             SlotCache, is_lora, quant_axis,
+                                             SlotCache, quant_axis,
+                                             quantizable,
                                              quantize_int8_weight,
                                              resolve_kernel)
 
@@ -248,17 +249,17 @@ def resolve_kernels(decode_kernel: str = 'auto',
 def quantize_params_int8(params: Mapping[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:
     """Weight-only int8 of a port state_dict, the reference's
-    `quantize_params_int8` in the port's layout: every floating tensor of
-    rank >= 2 (the [out, in] matmul weights, lm_head and tok_embed)
-    becomes int8 at its key with f32 scales at `<key>_scale`, one per
-    output row ([out, 1]; tok_embed's over its vocab axis, [1, D]); the
-    norms and the LoRA adapters stay float (the reference quantizes only
-    kernels and the embedding).  Bit for bit the reference's on the same
-    values, so cast to param_dtype first, as the reference's engine
-    does."""
+    `quantize_params_int8` in the port's layout: every entry
+    `llama.quantizable` names (the [out, in] matmul weights, lm_head, the
+    router and tok_embed) becomes int8 at its key with f32 scales at
+    `<key>_scale`, one per output row ([out, 1]; tok_embed's over its
+    vocab axis, [1, D]); the norms, biases, LoRA adapters, pos_embed and
+    expert stacks stay float (the reference quantizes only kernels and
+    the embedding).  Bit for bit the reference's on the same values, so
+    cast to param_dtype first, as the reference's engine does."""
     out: Dict[str, torch.Tensor] = {}
     for key, x in params.items():
-        if x.is_floating_point() and x.dim() >= 2 and not is_lora(key):
+        if quantizable(key, x):
             out[key], out[key + '_scale'] = quantize_int8_weight(
                 x, quant_axis(key))
         else:
@@ -276,7 +277,7 @@ def _serving_params(params: Mapping[str, torch.Tensor],
     for key, x in params.items():
         if x.is_floating_point() and not key.endswith('_scale'):
             x = x.to(cfg.param_dtype)
-            if cfg.quantize and x.dim() >= 2 and not is_lora(key):
+            if cfg.quantize and quantizable(key, x):
                 out.update(quantize_params_int8({key: x}))
                 continue
         out[key] = x
@@ -324,6 +325,8 @@ def build_model(model: str, params: Optional[Mapping[str, torch.Tensor]],
         from skypilot_tpu_torch.train import checkpoint as ckpt_lib
         params = ckpt_lib.load_params_for_serving(
             ckpt_lib.make_manager(checkpoint_dir))
+    if params is not None:
+        _check_positions(params, config)
     with torch.no_grad():
         if params is None:
             gen = torch.Generator(device=device)
@@ -340,6 +343,20 @@ def build_model(model: str, params: Optional[Mapping[str, torch.Tensor]],
         else:
             net.load_state_dict(_serving_params(params, config))
     return net, config
+
+
+def _check_positions(params: Mapping[str, torch.Tensor], cfg: Any) -> None:
+    """A family with learned positions (gpt2) sizes pos_embed by
+    max_seq_len: weights with another number of rows cannot serve this
+    engine's max_seq_len (the reference's checkpoint hint)."""
+    pos = params.get('pos_embed')
+    if pos is not None and pos.shape[0] != cfg.max_seq_len:
+        raise ValueError(
+            f'model {cfg.name!r} has learned positions for '
+            f'{pos.shape[0]} tokens (pos_embed), but the engine serves '
+            f'max_seq_len {cfg.max_seq_len}: this family sizes pos_embed by '
+            'max_seq_len; serve with the same max_seq_len the model was '
+            'trained with')
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:

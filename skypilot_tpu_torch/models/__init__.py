@@ -1,37 +1,102 @@
 """Model registry of the port: name -> (torch module, config).
 
-Llama family only in this slice (models/llama.py); the other families
-of skypilot_tpu.models come later.
+Families: llama-* / llama3* / mistral (models/llama.py), mixtral-* MoE
+(models/moe.py), gpt2-* (models/gpt2.py), qwen* (models/qwen.py), as
+skypilot_tpu.models resolves them, in its lookup order (deepseek, moe,
+llama, gemma, gpt2, qwen).  gemma-* and deepseek-* are not ported yet:
+their names raise a ValueError that says what they wait for.
 """
 from __future__ import annotations
 
 from typing import Any, Tuple
 
+import torch
+
 from skypilot_tpu_torch import DeviceLike, resolve_device
+
+_NOT_PORTED = ('gemma', 'deepseek')
+
+
+def _families():
+    """(config module, model class, config class) in lookup order."""
+    from skypilot_tpu_torch.models import gpt2, llama, moe, qwen
+    return ((moe, moe.Mixtral, moe.MoEConfig),
+            (llama, llama.Llama, llama.LlamaConfig),
+            (gpt2, gpt2.Gpt2, gpt2.Gpt2Config),
+            (qwen, qwen.Qwen, qwen.QwenConfig))
+
+
+def _family_of_config(config: Any):
+    """The family whose config class `config` is."""
+    for fam in _families():
+        if type(config) is fam[2]:
+            return fam
+    raise ValueError(f'not a config of a ported family: {config!r}')
+
+
+def get_config(name: str, **overrides: Any) -> Any:
+    """The config `get_model` would build, without building the model."""
+    if name.split('-')[0] in _NOT_PORTED:
+        raise ValueError(
+            f'model {name!r}: the gemma and deepseek families are not ported '
+            "yet (ROADMAP.md queue 1: 'The other families'); they need head "
+            'widths 256 and 576, which the kernels do not take yet '
+            "(ROADMAP.md queue 2: 'Head widths other than 64 and 128')")
+    for mod, _, _ in _families():
+        if name in mod.CONFIGS:
+            return mod.get_config(name, **overrides)
+    raise ValueError(f'Unknown model {name!r}; '
+                     f'available: {available_models()}')
+
+
+def build(config: Any, device: DeviceLike = 'cuda') -> Any:
+    """The model of `config`'s family, with uninitialized weights on
+    `device`; on the 'meta' device it has shapes and no storage (for
+    checks that need no values)."""
+    dev = torch.device(device)
+    if dev.type != 'meta':
+        dev = resolve_device(dev)
+    return _family_of_config(config)[1](config, dev)
 
 
 def get_model(name: str, device: DeviceLike = 'cuda',
               **overrides: Any) -> Tuple[Any, Any]:
     """Return (nn.Module with uninitialized weights on `device`, config)."""
-    from skypilot_tpu_torch.models import llama
     config = get_config(name, **overrides)
-    return llama.Llama(config, resolve_device(device)), config
-
-
-def get_config(name: str, **overrides: Any) -> Any:
-    """The config `get_model` would build, without building the model."""
-    from skypilot_tpu_torch.models import llama
-    if name not in llama.CONFIGS:
-        raise ValueError(f'Unknown model {name!r}; '
-                         f'available: {available_models()}')
-    return llama.get_config(name, **overrides)
+    return build(config, device), config
 
 
 def num_params(config: Any) -> int:
-    from skypilot_tpu_torch.models import llama
-    return llama.num_params(config)
+    """Analytic parameter count, by the config's family."""
+    return _family_of_config(config)[0].num_params(config)
+
+
+def active_params(config: Any) -> int:
+    """Parameters a forward multiplies per token: num_params, less the
+    experts a token is not routed through (MoE)."""
+    mod = _family_of_config(config)[0]
+    return getattr(mod, 'active_params', mod.num_params)(config)
+
+
+def flops_per_token_parts(config: Any) -> Tuple[float, float]:
+    """(base, attn_per_ctx): the forward cost of one decoded token is
+    base + attn_per_ctx * context; base is 2 * active params, and
+    attn_per_ctx prices the QK^T and PV products over n_heads heads of
+    head_dim a live context position (the reference's)."""
+    base = 2.0 * active_params(config)
+    attn_per_ctx = 2.0 * config.n_layers * config.n_heads \
+        * 2 * config.head_dim
+    return base, attn_per_ctx
+
+
+def flops_per_token(config: Any, context: int) -> float:
+    """Forward flops to decode one token whose attention spans `context`
+    live positions."""
+    base, attn = flops_per_token_parts(config)
+    return base + attn * context
 
 
 def available_models():
-    from skypilot_tpu_torch.models import llama
-    return sorted(llama.CONFIGS)
+    from skypilot_tpu_torch.models import gpt2, llama, moe, qwen
+    return (sorted(llama.CONFIGS) + sorted(moe.CONFIGS)
+            + sorted(gpt2.CONFIGS) + sorted(qwen.CONFIGS))

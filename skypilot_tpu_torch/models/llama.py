@@ -41,6 +41,12 @@ with `remat_policy='save_attn'`.  With `lora_rank` > 0 every forward
 delta of each targeted projection (`LoraAdapter`, the reference's
 `maybe_lora`); under weight-only int8 the adapters stay float, as the
 reference's `quantize_params_int8` leaves them.
+
+The other families (models/qwen.py, gpt2.py, moe.py) subclass `Llama`
+and `Block` and share these forwards: q/k/v biases
+(`attention_bias`), a head tied to the embedding (`tie_embeddings`),
+learned positions and no rope (gpt2), a routed MLP whose aux loss
+`train_forward(return_aux=True)` sums (Mixtral).
 """
 from __future__ import annotations
 
@@ -116,22 +122,29 @@ class LlamaConfig:
                                      'o_proj')
 
     def __post_init__(self):
-        if self.kv_cache_dtype not in ('auto', 'int8'):
-            raise ValueError(f"kv_cache_dtype must be 'auto' or 'int8', "
-                             f'got {self.kv_cache_dtype!r}')
-        if self.quantize not in (None, 'int8'):
-            raise ValueError(f"quantize must be None or 'int8', got "
-                             f'{self.quantize!r}.')
-        if self.lora_rank < 0:
-            raise ValueError(f'lora_rank must be >= 0, got {self.lora_rank}')
-        # A JSON override gives a list.
-        object.__setattr__(self, 'lora_targets', tuple(self.lora_targets))
-        object.__setattr__(self, 'dtype', as_dtype(self.dtype))
-        object.__setattr__(self, 'param_dtype', as_dtype(self.param_dtype))
+        check_config(self)
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+
+def check_config(cfg: Any) -> None:
+    """Validate a family's frozen config and normalise it in place:
+    dtype names become torch dtypes, a JSON list of lora_targets a
+    tuple."""
+    if cfg.kv_cache_dtype not in ('auto', 'int8'):
+        raise ValueError(f"kv_cache_dtype must be 'auto' or 'int8', "
+                         f'got {cfg.kv_cache_dtype!r}')
+    if cfg.quantize not in (None, 'int8'):
+        raise ValueError(f"quantize must be None or 'int8', got "
+                         f'{cfg.quantize!r}.')
+    if cfg.lora_rank < 0:
+        raise ValueError(f'lora_rank must be >= 0, got {cfg.lora_rank}')
+    if 'lora_targets' in cfg.__dataclass_fields__:
+        object.__setattr__(cfg, 'lora_targets', tuple(cfg.lora_targets))
+    object.__setattr__(cfg, 'dtype', as_dtype(cfg.dtype))
+    object.__setattr__(cfg, 'param_dtype', as_dtype(cfg.param_dtype))
 
 
 CONFIGS: Dict[str, LlamaConfig] = {
@@ -620,6 +633,18 @@ def quant_axis(name: str) -> int:
     return 0 if name == 'tok_embed' else 1
 
 
+def quantizable(name: str, x: torch.Tensor) -> bool:
+    """Whether weight-only int8 quantizes the state_dict entry `name`:
+    every float matmul weight [out, in] (lm_head, gpt2's fused qkv_proj
+    and Mixtral's router included) and tok_embed, as the reference's
+    `quantize_params_int8` quantizes its `kernel` leaves and the
+    embedding.  The norms, biases and LoRA adapters, gpt2's pos_embed and
+    Mixtral's expert-stacked [E, ...] weights (bare params in the
+    reference, not kernels) stay float."""
+    return (x.is_floating_point() and x.dim() == 2 and not is_lora(name)
+            and not name.endswith('pos_embed'))
+
+
 def dequantize_int8(q8: torch.Tensor, scale: torch.Tensor,
                     dtype: torch.dtype) -> torch.Tensor:
     """q8 * scale in f32, rounded to `dtype` (the reference's
@@ -701,10 +726,23 @@ def _add_adapters(module: nn.Module, shapes, cfg: LlamaConfig,
                     LoraAdapter(in_f, out_f, cfg, device))
 
 
+def _add_biases(module: nn.Module, shapes, cfg: Any, device) -> None:
+    """Register a float `<name>_bias` [out] for each projection of
+    `shapes` ({name: [out, in]}); biases stay float under int8 weights,
+    as the reference's `quantize_params_int8` leaves them."""
+    for name, (out_f, _) in shapes.items():
+        setattr(module, name + '_bias', _param((out_f,), cfg.param_dtype,
+                                               device))
+
+
 def _project(module: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
-    """Projection `name` of x in cfg.dtype, plus its adapter's delta when
-    it has one (the reference's `maybe_lora`)."""
-    y = F.linear(x, _use(module, name, module.cfg.dtype))
+    """Projection `name` of x in cfg.dtype, with its bias when it has one,
+    plus its adapter's delta when it has one (the reference's
+    `maybe_lora` over a biased DenseGeneral)."""
+    dt = module.cfg.dtype
+    bias = getattr(module, name + '_bias', None)
+    y = F.linear(x, _use(module, name, dt),
+                 None if bias is None else bias.to(dt))
     adapter = getattr(module, name + '_lora', None)
     return y if adapter is None else y + adapter(x)
 
@@ -747,7 +785,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 class Attention(nn.Module):
-    """Projection weights are [out, in] (F.linear layout)."""
+    """Projection weights are [out, in] (F.linear layout).  A config with
+    `attention_bias` (qwen) gives q/k/v biases, never o_proj one, read as
+    the reference reads it (`getattr(cfg, 'attention_bias', False)`)."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
@@ -757,6 +797,10 @@ class Attention(nn.Module):
                   'v_proj': (kv * hd, d), 'o_proj': (d, h * hd)}
         for name, shape in shapes.items():
             _weight(self, name, shape, cfg.param_dtype, cfg, device)
+        if getattr(cfg, 'attention_bias', False):
+            _add_biases(self, {n: shapes[n] for n in ('q_proj', 'k_proj',
+                                                      'v_proj')},
+                        cfg, device)
         _add_adapters(self, shapes, cfg, device)
 
     def qkv(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]
@@ -799,6 +843,11 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """A pre-norm decoder block: attention_norm, attention (`qkv`, then
+    the caller's `attend`, then `output`), mlp_norm, mlp.  Other families
+    give their own norms, attention and MLP in the same places (gpt2), or
+    their own `_rest` (Mixtral's routed MLP).  `forward` returns (x, the
+    block's router aux loss or None)."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
@@ -808,7 +857,8 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(*args)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, rope, attend) -> torch.Tensor:
+    def forward(self, x, rope, attend
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         return self._rest(x, attend(*self._qkv(x, rope)))
 
     def _qkv(self, x, rope):
@@ -817,9 +867,10 @@ class Block(nn.Module):
     def _rest(self, x, out):
         """The block after its attention: o_proj, residual, the MLP."""
         x = x + self.attention.output(out)
-        return x + self.mlp(self.mlp_norm(x))
+        return x + self.mlp(self.mlp_norm(x)), None
 
-    def forward_save_attn(self, x, rope, attend) -> torch.Tensor:
+    def forward_save_attn(self, x, rope, attend
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The block under remat_policy='save_attn': the attention norm
         and q/k/v projections, then the o_proj and MLP half, each rerun
         in the backward pass (checkpointed segments), with the attention
@@ -838,28 +889,51 @@ class Llama(nn.Module):
     Parameters are created uninitialized on `device`, not requiring
     grad; fill them with `init_weights` (random, from a generator) or
     `load_state_dict` (e.g. from `bridge.params_from_jax`), and call
-    `requires_grad_()` to train them."""
+    `requires_grad_()` to train them.
+
+    The other families (models/qwen.py, gpt2.py, moe.py) are subclasses
+    that change only what differs: `block_cls` and `norm_cls`, `embed`
+    (gpt2 adds learned positions), `rope` (gpt2 has none), a tied head
+    (`cfg.tie_embeddings`: the logits come from tok_embed), and the init
+    scales (`_init_std`).  The cache plans, the remat policies and the
+    attention closures of `hidden` and `train_forward` are shared."""
+
+    block_cls = Block
+    norm_cls = RMSNorm
+    embed_std = 1.0
 
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
         self.cfg = cfg
         _weight(self, 'tok_embed', (cfg.vocab_size, cfg.dim),
                 cfg.param_dtype, cfg, device, scale_shape=(1, cfg.dim))
-        self.layers = nn.ModuleList(Block(cfg, device)
+        self.layers = nn.ModuleList(self.block_cls(cfg, device)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
-                                  cfg.param_dtype, device)
-        # The head computes in f32 (reference: DenseGeneral dtype=f32),
-        # so a float head's weight is kept in f32 rather than cast every
-        # step.
-        _weight(self, 'lm_head', (cfg.vocab_size, cfg.dim), torch.float32,
-                cfg, device)
+        self.final_norm = self.norm_cls(cfg.dim, cfg.norm_eps, cfg.dtype,
+                                        cfg.param_dtype, device)
+        self.tied = bool(getattr(cfg, 'tie_embeddings', False))
+        if not self.tied:
+            # The head computes in f32 (reference: DenseGeneral
+            # dtype=f32), so a float head's weight is kept in f32 rather
+            # than cast every step.
+            _weight(self, 'lm_head', (cfg.vocab_size, cfg.dim),
+                    torch.float32, cfg, device)
+
+    def _init_std(self, name: str) -> float:
+        """Standard deviation of the normal draw of weight `name`: the
+        embedding's `embed_std`, o_proj scaled by 1/sqrt(2 * n_layers),
+        0.02 otherwise."""
+        if name == 'tok_embed':
+            return self.embed_std
+        if name.endswith('o_proj'):
+            return 0.02 / math.sqrt(2 * self.cfg.n_layers)
+        return 0.02
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """The reference's initializers: normal(0.02) kernels, o_proj
-        scaled by 1/sqrt(2 * n_layers), normal(1.0) embeddings, unit
-        norms.  An int8 model draws each weight as the float model does
+        """The reference's initializers: normal kernels and embeddings of
+        `_init_std`, unit norm scales, zero biases.  An int8 model draws
+        each weight as the float model does
         (same order, shapes and dtypes, so the same generator gives the
         same values) and stores its quantization of the weight cast to
         param_dtype, one weight at a time.  LoRA adapters are drawn after
@@ -867,7 +941,6 @@ class Llama(nn.Module):
         model without adapters from the same generator: each `a`
         normal(1 / rank) (the reference's initializer), each `b` zeros."""
         cfg = self.cfg
-        o_std = 0.02 / math.sqrt(2 * cfg.n_layers)
         params = dict(self.named_parameters())
         for name, p in params.items():
             if name.endswith('_scale') or is_lora(name):
@@ -875,13 +948,14 @@ class Llama(nn.Module):
             if name.endswith('.weight'):
                 p.fill_(1.0)
                 continue
+            if name.endswith('bias'):
+                p.zero_()
+                continue
             w = p
             if p.dtype == torch.int8:
                 w = torch.empty(p.shape, device=p.device, dtype=(
                     torch.float32 if name == 'lm_head' else cfg.param_dtype))
-            std = (1.0 if name == 'tok_embed'
-                   else o_std if name.endswith('o_proj') else 0.02)
-            w.normal_(0.0, std, generator=generator)
+            w.normal_(0.0, self._init_std(name), generator=generator)
             if p.dtype == torch.int8:
                 q, scale = quantize_int8_weight(w.to(cfg.param_dtype),
                                                 quant_axis(name))
@@ -903,8 +977,8 @@ class Llama(nn.Module):
         cfg = self.cfg
         kernel = resolve_kernel(kernel, tokens.device,
                                 paged=cfg.kv_page_size > 0)
-        x = self.embed(tokens)
-        rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        x = self.embed(tokens, positions)
+        rope = self.rope(positions)
         # Everything the layers share is computed once per forward.
         if isinstance(cache, PagedCache):
             if kv_mask is None:
@@ -933,22 +1007,25 @@ class Llama(nn.Module):
                 return run_cached_attention(i, q, k, v, cache, plan,
                                             cfg=cfg, kernel=kernel)
         for i, layer in enumerate(self.layers):
-            x = layer(x, rope, lambda q, k, v, i=i: attend(i, q, k, v))
+            x = layer(x, rope, lambda q, k, v, i=i: attend(i, q, k, v))[0]
         if isinstance(cache, PrefillCache):
             cache.cursor += tokens.shape[1]
         return self.final_norm(x)
 
     def train_forward(self, tokens: torch.Tensor,
                       positions: Optional[torch.Tensor] = None, *,
-                      return_hidden: bool = False,
-                      kernel: str = 'auto') -> torch.Tensor:
+                      return_hidden: bool = False, return_aux: bool = False,
+                      kernel: str = 'auto'):
         """Cacheless forward (the reference's `Llama.__call__` with
         decode=False): f32 logits [B, S, V], or with `return_hidden` the
-        final-normed hidden states [B, S, dim].  `kernel` as
-        `resolve_kernel`, on the tokens' device.
+        final-normed hidden states [B, S, dim]; with `return_aux` the
+        pair (that, the sum of every layer's router aux loss, as the
+        reference's `sum_aux_losses` gives it: an f32 0 for a family with
+        no router).  `kernel` as `resolve_kernel`, on the tokens' device.
 
         Under autograd with `cfg.remat` each block reruns in the backward
-        pass, by `cfg.remat_policy`:
+        pass, by `cfg.remat_policy` ('nothing' for a family whose config
+        has no such field):
           'nothing'    the whole block is one checkpoint (the reference's
                        nothing_saveable): only its input is kept, and the
                        backward reruns the flash forward too;
@@ -971,33 +1048,52 @@ class Llama(nn.Module):
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x = self.embed(tokens)
-        rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        x = self.embed(tokens, positions)
+        rope = self.rope(positions)
         remat = cfg.remat and torch.is_grad_enabled()
+        policy = getattr(cfg, 'remat_policy', 'nothing')
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for layer in self.layers:
             if not remat:
-                x = layer(x, rope, attend)
-            elif cfg.remat_policy == 'save_attn':
-                x = layer.forward_save_attn(x, rope, attend)
+                x, layer_aux = layer(x, rope, attend)
+            elif policy == 'save_attn':
+                x, layer_aux = layer.forward_save_attn(x, rope, attend)
             else:
-                x = checkpoint_lib.checkpoint(layer, x, rope, attend,
-                                              use_reentrant=False)
+                x, layer_aux = checkpoint_lib.checkpoint(
+                    layer, x, rope, attend, use_reentrant=False)
+            if layer_aux is not None:
+                aux = aux + layer_aux
         x = self.final_norm(x)
-        return x if return_hidden else self.head(x)
+        out = x if return_hidden else self.head(x)
+        return (out, aux) if return_aux else out
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, tokens: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
         """Token embeddings in cfg.dtype; an int8 table's rows are
-        gathered first, then dequantized (elementwise, so exact)."""
+        gathered first, then dequantized (elementwise, so exact).
+        `positions` serve the families with learned positions (gpt2)."""
+        return self._token_rows(tokens).to(self.cfg.dtype)
+
+    def _token_rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tok_embed's rows of `tokens` in param_dtype."""
         x = F.embedding(tokens, self.tok_embed)
         if x.dtype == torch.int8:
             x = dequantize_int8(x, self.tok_embed_scale, self.cfg.param_dtype)
-        return x.to(self.cfg.dtype)
+        return x
+
+    def rope(self, positions: torch.Tensor
+             ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The rotary tables every layer of a forward shares."""
+        return rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits from final-normed hidden states (an int8 head is
-        dequantized to param_dtype, then widened: the reference's
+        """f32 logits from final-normed hidden states: both widened to f32
+        against lm_head or, with a tied head, tok_embed (the reference's
+        'bsd,vd->bsv' einsum in f32).  An int8 head or table is
+        dequantized to param_dtype, then widened (the reference's
         DenseGeneral(dtype=f32) over its dequantized kernel)."""
-        return F.linear(x.float(), _use(self, 'lm_head', torch.float32))
+        name = 'tok_embed' if self.tied else 'lm_head'
+        return F.linear(x.float(), _use(self, name, torch.float32))
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 cache: Union[PrefillCache, PagedCache, SlotCache],

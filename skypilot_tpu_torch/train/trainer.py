@@ -5,7 +5,10 @@ reference's: next-token cross entropy in f32 with masking, a bf16
 forward and backward over f32 parameters (blocks rerun in the backward
 pass), gradient accumulation over microbatches, then
 optax.chain(clip_by_global_norm, adamw) with the warmup-cosine schedule,
-reproduced in PyTorch and applied in place.
+reproduced in PyTorch and applied in place.  The model is the
+config's family's (models/__init__.py `build`); a routed family's aux
+loss (Mixtral's router load balance) is added to the loss and reported
+as `aux_loss`, 0 for the others, as the reference's `loss_fn` does.
 
 `train_only` freezes every parameter whose name has no dotted part
 containing the substring (the reference's `_trainable_mask`; 'lora'
@@ -210,19 +213,24 @@ def make_optimizer(config: TrainConfig) -> AdamW:
 # ---------------------------------------------------------------------------
 def loss_fn(model, batch: Dict[str, torch.Tensor], *, kernel: str = 'auto'
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Masked mean next-token cross entropy of f32 logits, and the
-    masked accuracy (the reference's `loss_fn`)."""
-    logits = model.train_forward(batch['inputs'], kernel=kernel).float()
+    """Masked mean next-token cross entropy of f32 logits plus the
+    model's router aux loss (0 without a router), and the masked
+    accuracy (the reference's `loss_fn`; its 'loss' metric is the cross
+    entropy alone, 'aux_loss' the rest)."""
+    logits, aux = model.train_forward(batch['inputs'], kernel=kernel,
+                                      return_aux=True)
+    logits = logits.float()
     targets = batch['targets'].long()
     mask = batch['mask'].float()
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          targets.reshape(-1),
                          reduction='none').reshape(mask.shape)
     total = mask.sum().clamp_min(1.0)
-    loss = (ce * mask).sum() / total
+    ce_loss = (ce * mask).sum() / total
     correct = ((logits.argmax(-1) == targets) * mask).sum()
-    return loss, {'loss': loss.detach(), 'accuracy': correct / total,
-                  'tokens': total}
+    return ce_loss + aux, {'loss': ce_loss.detach(),
+                           'accuracy': correct / total, 'tokens': total,
+                           'aux_loss': aux.detach()}
 
 
 def _chunk_sums(head, hidden: torch.Tensor, targets: torch.Tensor,
@@ -265,16 +273,18 @@ def loss_fn_chunked(model, batch: Dict[str, torch.Tensor], *, chunk: int,
                     kernel: str = 'auto'
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """`loss_fn` with the head applied chunk by chunk
-    (`chunked_ce_sums`): the same loss, accuracy and gradients."""
-    hidden = model.train_forward(batch['inputs'], kernel=kernel,
-                                 return_hidden=True)
+    (`chunked_ce_sums`, over lm_head or a tied tok_embed): the same loss,
+    accuracy and gradients."""
+    hidden, aux = model.train_forward(batch['inputs'], kernel=kernel,
+                                      return_hidden=True, return_aux=True)
     mask = batch['mask'].float()
     total = mask.sum().clamp_min(1.0)
     ce_sum, correct = chunked_ce_sums(model.head, hidden, batch['targets'],
                                       mask, chunk)
-    loss = ce_sum / total
-    return loss, {'loss': loss.detach(), 'accuracy': correct / total,
-                  'tokens': total}
+    ce_loss = ce_sum / total
+    return ce_loss + aux, {'loss': ce_loss.detach(),
+                           'accuracy': correct / total, 'tokens': total,
+                           'aux_loss': aux.detach()}
 
 
 def compute_grads(model, batch: Dict[str, torch.Tensor], *,
@@ -340,9 +350,9 @@ class Trainer:
         """Random weights from `config.seed`, or `params` (a state_dict,
         e.g. `bridge.params_from_jax` of the reference's params); the
         parameters `train_only` selects (all without it) require grad,
-        and the optimizer state covers them alone, at step 0."""
-        from skypilot_tpu_torch.models import llama
-        model = llama.Llama(self.model_config, self.device)
+        and the optimizer state covers them alone, at step 0.  The model
+        is the config's family's (models/__init__.py `build`)."""
+        model = models_lib.build(self.model_config, self.device)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.config.seed)
@@ -406,6 +416,7 @@ class Trainer:
                     'loss': values['loss'],
                     'accuracy': values['accuracy'],
                     'grad_norm': values['grad_norm'],
+                    'aux_loss': values['aux_loss'],
                     'tokens_per_sec': (window_steps * tokens_per_step / dt
                                        if dt > 0 else 0.0),
                     'step_ms': dt / window_steps * 1e3,

@@ -34,7 +34,12 @@ model, bf16 and int8 caches): replayed logits equal to the eager
 forward's bit for bit at two read buckets, each replay adding its
 graph's kernel-4 launches to the wrapper's counts; a planted graph whose
 static kv mask is never overwritten fails that check; and the pipelined
-engine with graphs gives the synchronous eager engine's greedy streams.
+engine with graphs gives the synchronous eager engine's greedy streams;
+a mixtral-tiny engine whose decode steps drop routes at capacity replays
+its MoE decode forward equal to eager bit for bit.  The other families'
+heads: gpt2's (12 over 12, a group of 1, d 64) and qwen2-7b's (28 over
+4, a group of 7) through kernels 4 (S 1 and 5, both branches), 5 and
+1-3.
 
 Tolerances, per element.  f32 (paged decode only; the prefill kernel
 takes 16-bit types): 1e-4 absolute against the plain version at f32.
@@ -146,8 +151,16 @@ def _decode_case(dev, dtype, *, b, h, kvh, d, ps, ctxs, s=1, window=None,
     (4, 2, 128, 32, [40, 64], 1, 9, ()),
     (4, 2, 64, 16, [16, 33, 20], 1, None, (0, 2)),
     (4, 2, 128, 8, [12, 30], 4, None, ()),
+    # gpt2 (MHA: a group of 1 at d 64, 3 idle rows a 4-row block) and
+    # qwen2-7b (28 heads over 4: a group of 7, so 4-row blocks straddle
+    # query heads; at S 5, 35 rows in 9 blocks), decode and verify.
+    (12, 12, 64, 16, [300, 17], 1, None, ()),
+    (12, 12, 64, 16, [90, 17], 5, None, ()),
+    (28, 4, 128, 16, [300, 17], 1, None, ()),
+    (28, 4, 128, 16, [90, 17], 5, None, ()),
 ], ids=['gqa2', 'mqa_d64_ps8', 'g8_rows_over_block', 'llama3_8b',
-        'window_ps32', 'null_pages', 'multi_query'])
+        'window_ps32', 'null_pages', 'multi_query', 'gpt2_g1_d64',
+        'gpt2_g1_d64_s5', 'qwen2_7b_g7', 'qwen2_7b_g7_s5'])
 def test_paged_decode_kernel_matches_plain(dev, dtype, h, kvh, d, ps, ctxs,
                                            s, window, null_last):
     q, pk, pv, table, mask = _decode_case(
@@ -188,7 +201,10 @@ def _quantized(pool, poison_null):
     (32, 8, 128, 16, [700, 1], None, ()),
     (4, 2, 128, 32, [40, 64], 9, ()),
     (4, 2, 64, 16, [16, 33, 20], None, (0, 2)),
-], ids=['gqa2', 'mqa_d64_ps8', 'llama3_8b', 'window_ps32', 'null_pages'])
+    (12, 12, 64, 16, [300, 17], None, ()),
+    (28, 4, 128, 16, [300, 17], None, ()),
+], ids=['gqa2', 'mqa_d64_ps8', 'llama3_8b', 'window_ps32', 'null_pages',
+        'gpt2_g1_d64', 'qwen2_7b_g7'])
 def test_paged_decode_int8_kernel_matches_plain(dev, dtype, h, kvh, d, ps,
                                                 ctxs, window, null_last):
     q, pk, pv, table, mask = _decode_case(
@@ -412,8 +428,10 @@ def _prefill_case(dev, dtype, *, bases, s, h, kvh, d, ps, L, true_lens,
     ([200], 70, 4, 2, 128, 32, [300], 48),
     ([1536], 512, 32, 8, 128, 16, [3000], None),
     ([2560], 512, 32, 8, 128, 16, [3000], None),
+    ([512], 512, 12, 12, 64, 16, [900], None),
+    ([1536], 512, 28, 4, 128, 16, [3000], None),
 ], ids=['base0', 'mqa_d64', 'ragged_pad', 'window', 'llama3_8b',
-        'llama3_8b_last_chunk'])
+        'llama3_8b_last_chunk', 'gpt2_g1_d64', 'qwen2_7b_g7'])
 def test_ragged_prefill_kernel_matches_plain(dev, bases, s, h, kvh, d, ps,
                                              true_lens, window):
     dtype = torch.bfloat16
@@ -436,8 +454,10 @@ def test_ragged_prefill_kernel_matches_plain(dev, bases, s, h, kvh, d, ps,
     ([96, 7], 33, 8, 2, 128, 16, [120, 30], None),
     ([200], 70, 4, 2, 128, 32, [300], 48),
     ([2560], 512, 32, 8, 128, 16, [3000], None),
+    ([512], 512, 12, 12, 64, 16, [900], None),
+    ([1536], 512, 28, 4, 128, 16, [3000], None),
 ], ids=['base0', 'mqa_d64', 'ragged_pad', 'window',
-        'llama3_8b_last_chunk'])
+        'llama3_8b_last_chunk', 'gpt2_g1_d64', 'qwen2_7b_g7'])
 def test_ragged_prefill_int8_kernel_matches_plain(dev, bases, s, h, kvh, d,
                                                   ps, true_lens, window):
     dtype = torch.bfloat16
@@ -625,9 +645,14 @@ def _assert_within(name, got, want, tol):
     (1, 8, 2, 300, 128, True, 17, 0),
     (1, 4, 2, 256, 128, True, None, 130),
     (1, 16, 2, 320, 128, True, None, 0),
+    # gpt2's heads (12 over 12 at d 64) and qwen2-7b's (28 over 4: the
+    # dk/dv group sum over 7 heads).
+    (2, 12, 12, 300, 64, True, None, 0),
+    (1, 28, 4, 320, 128, True, None, 0),
 ], ids=['g1_d64', 'g4_b2', 'ragged', 'mqa_noncausal_ragged', 'window',
         'offset', 'llama3_8b_heads', 's129', 's640_odd_tiles',
-        's768_even_tiles', 'window17', 'offset130', 'g8_s320'])
+        's768_even_tiles', 'window17', 'offset130', 'g8_s320',
+        'gpt2_g1_d64', 'qwen2_7b_g7'])
 def test_flash_kernels_match_plain(dev, dtype, b, h, kvh, s, d, causal,
                                    window, offset):
     q, k, v, do = _flash_case(dev, dtype, b, h, kvh, s, d)
@@ -924,3 +949,17 @@ def test_async_graph_streams_equal_sync_eager(dev, kv_cache_dtype):
     assert info['replays'] > 0 and len(info['buckets']) >= 2
     assert eng.pipeline_info()['depth'] == 0
     assert eng.allocator_leak_report() is None
+
+
+def test_mixtral_decode_graph_replay_equals_eager(dev):
+    """A mixtral-tiny engine (bf16, 4 slots, capacity_factor 0.5, so a
+    decode step drops routes): the S = 1 decode forward, the MoE layers'
+    routing, dispatch and combine inside it, replayed from its CUDA graph
+    equals the eager forward bit for bit."""
+    eng = teng.ContinuousBatchingEngine(
+        model='mixtral-tiny', model_overrides=dict(_TINY, capacity_factor=0.5),
+        n_slots=4, page_size=16, kv_read_bucket=64, device=dev)
+    for j, n in enumerate((30, 45, 20)):
+        _go_live(eng, [(7 * i + 3 * j) % 512 for i in range(n)])
+    assert _replay_gap(eng) == 0.0
+    assert eng.graph_info()['buckets']
