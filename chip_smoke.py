@@ -53,6 +53,13 @@ Phases, any failure exits non-zero:
                shape; then, checked only, FLASH_EDGES: queries at an
                offset past their keys (700; 200 under a 300-token window
                at d 64).
+     Head width 256 (gemma; `phase_kernels_d256`): kernels 4 and 5, both
+               branches, checked and timed against the plain versions and
+               SDPA at the serve_gemma shapes: decode over the same
+               contexts at gemma-7b's heads (16 over 16) at S 1 and 5 and
+               gemma-2b's (8 over 1, a group of 8); a 512-token chunk at
+               base 1536 at both models' heads (GEMMA_DECODE,
+               GEMMA_PREFILL).
   4. serve   - start the port's InferenceServer on llama3-8b at full width
                and depth (random bf16 weights from a seed; page 16,
                prefill chunk 512, 8 slots, max_seq_len 4096; like every
@@ -215,6 +222,16 @@ Phases, any failure exits non-zero:
                plain run routed as the kernels' run) and
                FAMILY_MEMORIZE_STEPS steps on one batch whose loss must
                fall.
+     serve_gemma - gemma-7b whole (28 layers, 16 heads over 16 at head_dim
+               256, GeGLU, the tied head, vocab 256128) through the CLI's
+               server, serve's settings: the main path (10 requests,
+               kernels 4 and 5 at d 256 counted from 0), decode tokens/s,
+               `first_step_check`, `graph_check`; the same from an int8
+               KV cache (`int8_logit_gaps`, INT8_LOGITS_REL_TOL); a
+               --spec-k 4 server with a gemma-2b draft over templated
+               prompts (kernel 4 at S 5, the draft's at S 1 over one KV
+               head); gemma-2b alone (main path, decode tokens/s,
+               `first_step_check`).
      The kernel phase's edge cases include these families' heads: G 1
      at d 64 and G 7 at d 128 in DECODE_EDGES (S 1 and 5),
      PREFILL_EDGES and FLASH_EDGES.
@@ -235,7 +252,12 @@ Phases, any failure exits non-zero:
                is the worst over the timed case and DECODE_EDGES, whose
                errors `cases` holds; the flash entries
                likewise hold the training shape's times and bound and the
-               worst error over their three cases and FLASH_EDGES.
+               worst error over their three cases and FLASH_EDGES.  Four
+               more entries, `<kernel>_d256` ("head_dim": 256), hold the
+               head-width-256 instantiations: launches in the gemma
+               phases (the float branch's main path serve_gemma, the int8
+               branch's serve_gemma_int8), gemma-7b's times and bound,
+               the worst error of their cases.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -445,7 +467,11 @@ def phase_build() -> None:
     for name, (path, report) in sorted(built.items()):
         log(f'build {name}: {path.name}')
         for line in report.splitlines():
-            if ('registers' in line or 'spill' in line or 'smem' in line
+            if 'Compiling entry function' in line:
+                # The kernel's mangled name: its template arguments (type,
+                # pool type, head dim) say which instantiation follows.
+                log(f'  {line.split(chr(39))[1][:120]}')
+            elif ('registers' in line or 'spill' in line or 'smem' in line
                     or line.startswith('nvcc ')):
                 log(f'  {line.strip()}')
 
@@ -551,21 +577,27 @@ def _kernel_decode(dev, rng, quant):
 DECODE_S = (5, 64)
 
 
-def _kernel_decode_multi(dev, name: str, quant: bool, s: int) -> dict:
+def _kernel_decode_multi(dev, name: str, quant: bool, s: int,
+                         heads=(H, KVH, D), case=None) -> dict:
+    """Kernel 4 at S queries a row over the decode case's contexts, at
+    `heads` (query heads, KV heads, head dim), checked and timed."""
     from skypilot_tpu_torch.ops import grouped_attention as ga
     from skypilot_tpu_torch.ops import paged_attention as pa
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, kvh, d = heads
     ctxs = np.linspace(100, 4000, 8).astype(int)
     np.random.RandomState(0).shuffle(ctxs)
-    args, scales = _decode_edge_inputs(dev, 200 + s, tuple(ctxs), s, D, PS,
-                                       DTYPE, None, quant)
+    args, scales = _decode_edge_inputs(dev, 200 + s, tuple(ctxs), s, d, PS,
+                                       DTYPE, None, quant, h, kvh)
     q, pk, pv, table, mask = args
-    kw = dict(scale=D ** -0.5, probs_dtype=DTYPE, **scales)
+    kw = dict(scale=d ** -0.5, probs_dtype=DTYPE, **scales)
     got = pa.paged_decode_attention(*args, **kw)
     torch.cuda.synchronize()
-    err = check_kernel(f'{name} S {s} (contexts {sorted(ctxs.tolist())})',
+    case = case or f's{s}'
+    err = check_kernel(f'{name} {case} S {s} heads {h}/{kvh} d {d} '
+                       f'(contexts {sorted(ctxs.tolist())})',
                        got, pa.paged_decode_attention_plain, tuple(args),
-                       dict(scale=D ** -0.5, **scales), probs_rounded=False)
+                       dict(scale=d ** -0.5, **scales), probs_rounded=False)
     kg, vg = ga.gather_pages(pk, table), ga.gather_pages(pv, table)
     if quant:   # dequantized beforehand, untimed
         kg = _dequantized(kg, ga.gather_pages(scales['key_scale'], table))
@@ -573,27 +605,30 @@ def _kernel_decode_multi(dev, name: str, quant: bool, s: int) -> dict:
     ms = time_ms(lambda: pa.paged_decode_attention(*args, **kw))
     plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(*args, **kw))
     lib_ms = time_ms(lambda: sdpa(q, kg, vg, attn_mask=mask,
-                                  scale=D ** -0.5, enable_gqa=True))
-    bms, by = bound(*decode_multi_work(ctxs, s, table, mask, quant))
-    log(f'{name} S {s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa '
-        f'{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), kernel at '
-        f'{bms / ms:.3f} of its bound')
-    return dict(case=f's{s}', max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  scale=d ** -0.5, enable_gqa=True))
+    bms, by = bound(*decode_multi_work(ctxs, s, table, mask, quant, heads))
+    log(f'{name} {case} S {s} heads {h}/{kvh} d {d}: kernel {ms:.4f} ms, '
+        f'plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms '
+        f'({by}), kernel at {bms / ms:.3f} of its bound')
+    return dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
-def decode_multi_work(ctxs, s: int, table, mask, quant: bool):
-    """(bytes, flops) of kernel 4 at S queries a row (H 32, kvh 8, d 128):
-    q and out bf16 once, each row's K/V rows once (its context + S - 1
-    positions, int8 with an f32 scale or bf16), the table and the mask;
-    4 d flops per visible (query, position) pair and query head."""
+def decode_multi_work(ctxs, s: int, table, mask, quant: bool,
+                      heads=(H, KVH, D)):
+    """(bytes, flops) of kernel 4 at S queries a row (`heads`: H 32, kvh 8,
+    d 128 unless given): q and out bf16 once, each row's K/V rows once
+    (its context + S - 1 positions, int8 with an f32 scale or bf16), the
+    table and the mask; 4 d flops per visible (query, position) pair and
+    query head."""
+    h, kvh, d = heads
     b = table.shape[0]
-    kv_row = 2 * (D + 4) if quant else 2 * D * 2
+    kv_row = 2 * (d + 4) if quant else 2 * d * 2
     live = int(np.sum(ctxs)) + b * (s - 1)
     pairs = int(np.sum(ctxs)) * s + b * s * (s - 1) // 2
-    nbytes = (2 * b * H * s * D * 2 + live * KVH * kv_row
+    nbytes = (2 * b * h * s * d * 2 + live * kvh * kv_row
               + table.numel() * 4 + mask.numel())
-    return nbytes, 4.0 * pairs * H * D
+    return nbytes, 4.0 * pairs * h * d
 
 
 # Decode cases the kernel's split page walk can get wrong, checked but not
@@ -762,56 +797,60 @@ def _prefill_edges(dev, name, quant):
     return out
 
 
-def _kernel_prefill(dev, quant):
+def _prefill_timed(dev, name, quant, base, g, cache, heads=(H, KVH, D),
+                   tag=None) -> dict:
+    """One 512-token chunk at cursor `base` over `cache` (as
+    `_prefill_cache` gives it, at `heads`), checked and timed against the
+    plain version and SDPA."""
     from skypilot_tpu_torch.ops import ragged_prefill as rp
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    name = 'ragged_prefill_int8' if quant else 'ragged_prefill'
+    h, kvh, d = heads
+    keys, values, scales, (lib_k, lib_v) = cache
     s, max_len, true_len = 512, PREFILL_MAX_LEN, PREFILL_TRUE_LEN
-    g = torch.Generator(device=dev).manual_seed(2)
-    keys, values, scales, (lib_k, lib_v) = _prefill_cache(dev, g, quant)
+    tag = tag or f'{name} base {base}'
     kv_mask = (torch.arange(max_len, device=dev) < true_len)[None]
-    cases = []
-    for base in (0, 1536, 2560):
-        qp = torch.randn(1, H, s, D, generator=g, device=dev, dtype=DTYPE)
-        read_len = -(-(base + s) // 512) * 512   # the engine's read bucket
-        n_read = read_len // PS
-        tbl = torch.arange(n_read, dtype=torch.int32,
-                           device=dev)[None].contiguous()
-        # The cursor base as the engine passes it: an int32 device tensor.
-        base_t = torch.tensor([base], dtype=torch.int32, device=dev)
-        pkw = dict(scale=D ** -0.5, probs_dtype=DTYPE, page_size=PS,
-                   **scales)
-        got = rp.ragged_prefill_attention(qp, keys, values, tbl, base_t,
-                                          kv_mask, **pkw)
-        torch.cuda.synchronize()
-        err = check_kernel(f'{name} base {base}', got,
-                           rp.ragged_prefill_attention_plain,
-                           (qp, keys, values, tbl, base_t, kv_mask),
-                           dict(scale=D ** -0.5, page_size=PS, **scales),
-                           probs_rounded=True)
-        pos = torch.arange(read_len, device=dev)
-        qpos = base + torch.arange(s, device=dev)
-        lib_mask = ((pos[None, :] <= qpos[:, None])
-                    & kv_mask[0, :read_len][None])[None, None]
-        kr = lib_k[:, :, :read_len]
-        vr = lib_v[:, :, :read_len]
-        ms = time_ms(lambda: rp.ragged_prefill_attention(
-            qp, keys, values, tbl, base_t, kv_mask, **pkw))
-        plain_ms = time_ms(lambda: rp.ragged_prefill_attention_plain(
-            qp, keys, values, tbl, base_t, kv_mask, **pkw))
-        lib_ms = time_ms(lambda: sdpa(qp, kr, vr, attn_mask=lib_mask,
-                                      scale=D ** -0.5, enable_gqa=True))
-        nbytes, flops = prefill_work(s, base, quant)
-        bms, by = bound(nbytes, flops)
-        lib = ('sdpa on K/V dequantized to bf16 beforehand' if quant
-               else 'sdpa')
-        log(f'{name} base {base}: kernel {ms:.4f} ms, plain '
-            f'{plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {bms:.4f} ms '
-            f'({by})')
-        cases.append(dict(base=base, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                          library_ms=lib_ms))
-    del keys, values, scales, lib_k, lib_v
+    qp = torch.randn(1, h, s, d, generator=g, device=dev, dtype=DTYPE)
+    read_len = -(-(base + s) // 512) * 512   # the engine's read bucket
+    n_read = read_len // PS
+    tbl = torch.arange(n_read, dtype=torch.int32,
+                       device=dev)[None].contiguous()
+    # The cursor base as the engine passes it: an int32 device tensor.
+    base_t = torch.tensor([base], dtype=torch.int32, device=dev)
+    pkw = dict(scale=d ** -0.5, probs_dtype=DTYPE, page_size=PS, **scales)
+    got = rp.ragged_prefill_attention(qp, keys, values, tbl, base_t,
+                                      kv_mask, **pkw)
+    torch.cuda.synchronize()
+    err = check_kernel(tag, got, rp.ragged_prefill_attention_plain,
+                       (qp, keys, values, tbl, base_t, kv_mask),
+                       dict(scale=d ** -0.5, page_size=PS, **scales),
+                       probs_rounded=True)
+    pos = torch.arange(read_len, device=dev)
+    qpos = base + torch.arange(s, device=dev)
+    lib_mask = ((pos[None, :] <= qpos[:, None])
+                & kv_mask[0, :read_len][None])[None, None]
+    kr = lib_k[:, :, :read_len]
+    vr = lib_v[:, :, :read_len]
+    ms = time_ms(lambda: rp.ragged_prefill_attention(
+        qp, keys, values, tbl, base_t, kv_mask, **pkw))
+    plain_ms = time_ms(lambda: rp.ragged_prefill_attention_plain(
+        qp, keys, values, tbl, base_t, kv_mask, **pkw))
+    lib_ms = time_ms(lambda: sdpa(qp, kr, vr, attn_mask=lib_mask,
+                                  scale=d ** -0.5, enable_gqa=True))
+    bms, by = bound(*prefill_work(s, base, quant, heads))
+    lib = 'sdpa on K/V dequantized to bf16 beforehand' if quant else 'sdpa'
+    log(f'{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib} '
+        f'{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})')
+    return dict(base=base, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def _kernel_prefill(dev, quant):
+    name = 'ragged_prefill_int8' if quant else 'ragged_prefill'
+    g = torch.Generator(device=dev).manual_seed(2)
+    cache = _prefill_cache(dev, g, quant)
+    cases = [_prefill_timed(dev, name, quant, base, g, cache)
+             for base in (0, 1536, 2560)]
+    del cache
     cases += _prefill_edges(dev, name, quant)
     main = dict(next(c for c in cases if c.get('base') == 1536))
     del main['base']
@@ -819,18 +858,64 @@ def _kernel_prefill(dev, quant):
     return dict(main, cases=cases)
 
 
-def prefill_work(s: int, base: int, quant: bool):
-    """(bytes, flops) of one serving-shape prefill chunk (H 32, kvh 8,
-    d 128, a 3000-token kv_mask): q and out bf16 read and written once,
-    the live K/V rows once (int8 with an f32 scale each, or bf16), the
-    kv_mask row and the table; 4 d flops per visible (query, column) pair
-    and query head."""
+def prefill_work(s: int, base: int, quant: bool, heads=(H, KVH, D)):
+    """(bytes, flops) of one serving-shape prefill chunk (`heads`: H 32,
+    kvh 8, d 128 unless given; a 3000-token kv_mask): q and out bf16 read
+    and written once, the live K/V rows once (int8 with an f32 scale
+    each, or bf16), the kv_mask row and the table; 4 d flops per visible
+    (query, column) pair and query head."""
+    h, kvh, d = heads
     pairs = sum(min(base + i + 1, PREFILL_TRUE_LEN) for i in range(s))
-    kv_row = 2 * (D + 4) if quant else 2 * D * 2
+    kv_row = 2 * (d + 4) if quant else 2 * d * 2
     n_read = -(-(base + s) // 512) * 512 // PS
-    nbytes = (2 * s * H * D * 2 + min(base + s, PREFILL_TRUE_LEN) * KVH
+    nbytes = (2 * s * h * d * 2 + min(base + s, PREFILL_TRUE_LEN) * kvh
               * kv_row + PREFILL_MAX_LEN + n_read * 4)
-    return nbytes, 4.0 * pairs * H * D
+    return nbytes, 4.0 * pairs * h * d
+
+
+# Kernels 4 and 5 at head width 256, the serve_gemma shapes, both
+# branches, checked and timed: decode over the decode case's contexts
+# (100-4000, batch 8) at gemma-7b's heads (16 over 16: a group of 1) at
+# S 1 (the entry's times) and S 5 (a verify), and at gemma-2b's (8 over
+# 1: a group of 8); prefill a 512-token chunk at base 1536 of a 4096-token
+# cache, gemma-7b's heads (the entry's times) and gemma-2b's.
+GEMMA_D = 256
+GEMMA_DECODE = (('gemma_7b', 16, 16, 1), ('gemma_7b_s5', 16, 16, 5),
+                ('gemma_2b_g8', 8, 1, 1))
+GEMMA_PREFILL = (('gemma_7b', 16, 16), ('gemma_2b_g8', 8, 1))
+
+
+def phase_kernels_d256(dev) -> dict:
+    """Kernels 4 and 5 at head width 256 (GEMMA_DECODE, GEMMA_PREFILL),
+    float and int8 branches: entries `<kernel>_d256` whose times and bound
+    are gemma-7b's S 1 decode and base-1536 chunk, whose max_abs_err is
+    the worst of their cases, and whose `cases` hold each case's
+    numbers."""
+    results = {}
+    for quant in (False, True):
+        tag = '_int8' if quant else ''
+        name = f'paged_decode{tag}_d256'
+        cases = [_kernel_decode_multi(dev, name, quant, s,
+                                      (h, kvh, GEMMA_D), case)
+                 for case, h, kvh, s in GEMMA_DECODE]
+        results[name] = dict(cases[0], max_abs_err=max(
+            c['max_abs_err'] for c in cases), cases=cases)
+        del results[name]['case']
+        _free()
+        name = f'ragged_prefill{tag}_d256'
+        cases = []
+        for case, h, kvh in GEMMA_PREFILL:
+            g = torch.Generator(device=dev).manual_seed(3)
+            cache = _prefill_cache(dev, g, quant, GEMMA_D, DTYPE, kvh)
+            cases.append(dict(case=case, **_prefill_timed(
+                dev, name, quant, 1536, g, cache, (h, kvh, GEMMA_D),
+                f'{name} {case} base 1536 heads {h}/{kvh}')))
+            del cache
+            _free()
+        results[name] = dict(cases[0], max_abs_err=max(
+            c['max_abs_err'] for c in cases), cases=cases)
+        del results[name]['case'], results[name]['base']
+    return results
 
 
 def phase_kernels(dev, quant=(False, True),
@@ -3023,6 +3108,124 @@ def phase_serve_gpt2(dev) -> dict:
     return dict(launches=launches, decode_tps=tps)
 
 
+# Gemma at head width 256 (serve_gemma): gemma-7b whole from a bf16 and
+# an int8 KV cache, then with gemma-2b as its draft (`--spec-k 4`), then
+# gemma-2b alone; serve's settings through the CLI's server.  Every
+# launch of kernels 4 and 5 in these phases is at d 256 (both models'
+# head width, checked).
+GEMMA_DRAFT = 'gemma-2b'
+
+
+def _gemma_server(dev, model: str, extra=()):
+    srv, http_thread, url = _family_server(dev, model, 4096, extra=extra)
+    if srv.engine.config.head_dim != GEMMA_D:
+        raise AssertionError(f'{model}: head_dim {srv.engine.config.head_dim}')
+    return srv, http_thread, url
+
+
+def phase_serve_gemma(dev) -> dict:
+    """gemma-7b whole (28 layers, dim 3072, 16 heads over 16 at head_dim
+    256, GeGLU ffn 24576, vocab 256128, the tied head; 8.54 B parameters,
+    17.08 GB in bf16), serve's settings, through the CLI's server: with a
+    bf16 KV cache the main path (10 requests, kernels 4 and 5 counted
+    from 0), decode tokens/s, the first decode step kernels vs plain
+    (LOGITS_REL_TOL), a decode step replayed vs eager (GRAPH_LOGITS_GAP);
+    the same with --kv-cache-dtype int8, its kernels-vs-plain check being
+    `int8_logit_gaps` (INT8_LOGITS_REL_TOL); a --spec-k 4 server with
+    gemma-2b as the draft over templated prompts (kernel 4 at S 5 over 16
+    KV heads, the draft's kernel 4 at S 1 over one KV head: a group of
+    8); and gemma-2b alone: the main path, decode tokens/s, its first
+    decode step kernels vs plain.  Returns launches by phase, kernel 4's
+    launches by S in the spec server, decode tokens/s and the checks'
+    gaps."""
+    out = dict(launches={}, decode_tps={}, gaps={})
+    for kv in ('auto', 'int8'):
+        phase = 'serve_gemma' if kv == 'auto' else 'serve_gemma_int8'
+        srv, http_thread, url = _gemma_server(
+            dev, 'gemma-7b', () if kv == 'auto'
+            else ('--kv-cache-dtype', 'int8'))
+        eng = srv.engine
+        vocab = eng.config.vocab_size
+        rng = np.random.RandomState(51)
+        _, out['launches'][phase], _ = _serve_main_path(
+            url, vocab, rng, kv, tag=f'gemma-7b[{kv}]')
+        tps = out['decode_tps'][phase] = _decode_rate(url, eng, rng, phase)
+        log(f'{phase}: decode {tps:.1f} tokens/s at batch 8 (33- minus '
+            '1-token runs over HTTP)')
+        _stop(srv, http_thread)
+        if kv == 'auto':
+            first_step_check(eng, rng.randint(0, vocab, 700).tolist(), phase)
+        else:
+            prompts = int8_check_prompts(vocab)
+            gaps, _ = int8_logit_gaps(eng, prompts)
+            out['gaps'][phase] = gaps
+            log(f'{phase}: logits through the int8 kernels against the int8 '
+                f'plain versions, (prefill, first decode step) gap over max '
+                f'|logit| for prompts of {[len(p) for p in prompts]} '
+                f'tokens: {[(round(a, 5), round(b, 5)) for a, b in gaps]} '
+                f'(limit {INT8_LOGITS_REL_TOL})')
+            if not max(max(g) for g in gaps) <= INT8_LOGITS_REL_TOL:
+                raise AssertionError(f'{phase}: int8 kernel logits disagree '
+                                     'with the plain path')
+        graph_check(eng, vocab, phase)
+        eng.close()
+        del srv, eng
+        _free()
+
+    srv, http_thread, url = _gemma_server(
+        dev, 'gemma-7b', ('--spec-k', str(SPEC_K), '--draft-model',
+                          GEMMA_DRAFT))
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    prompts = template_prompts(vocab, 53)
+    _reset_launch_counts()
+    toks, burst_s = _post_all(url, [dict(prompt_ids=[p],
+                                         max_new_tokens=SPEC_NEW)
+                                    for p in prompts])
+    launches = out['launches']['serve_gemma_spec'] = _launch_counts()
+    by_s = out['by_s'] = _by_s()
+    info = eng.speculation_info()
+    log(f'serve_gemma_spec: {len(prompts)} greedy requests over templated '
+        f'prompts with a {GEMMA_DRAFT} draft in {burst_s:.2f}s; verify '
+        f'steps {info["steps"]}, proposed {info["proposed_tokens"]}, '
+        f'accepted {info["accepted_tokens"]}, committed '
+        f'{info["committed_tokens"]}; kernel 4 launches by S {by_s}; '
+        f'launches {launches}')
+    _stop(srv, http_thread)
+    for t in toks:
+        if len(t) != SPEC_NEW or not all(0 <= x < vocab for x in t):
+            raise AssertionError(f'serve_gemma_spec: bad completion {t}')
+    if not (by_s['float'].get(SPEC_K + 1, 0) > 0
+            and by_s['float'].get(1, 0) > 0
+            and launches['ragged_prefill'] > 0
+            and info['proposed_tokens'] > 0):
+        raise AssertionError('serve_gemma_spec: kernel 4 at S '
+                             f'{SPEC_K + 1} (target) or S 1 (draft), or '
+                             'kernel 5, did not launch, or nothing was '
+                             'proposed')
+    eng.close()
+    del srv, eng
+    _free()
+
+    srv, http_thread, url = _gemma_server(dev, 'gemma-2b')
+    eng = srv.engine
+    vocab = eng.config.vocab_size
+    rng = np.random.RandomState(55)
+    _, out['launches']['serve_gemma_2b'], _ = _serve_main_path(
+        url, vocab, rng, 'auto', tag='gemma-2b')
+    tps = out['decode_tps']['serve_gemma_2b'] = _decode_rate(
+        url, eng, rng, 'gemma-2b')
+    log(f'serve_gemma_2b: decode {tps:.1f} tokens/s at batch 8 (33- minus '
+        '1-token runs over HTTP)')
+    _stop(srv, http_thread)
+    first_step_check(eng, rng.randint(0, vocab, 700).tolist(),
+                     'serve_gemma_2b')
+    eng.close()
+    del srv, eng
+    _free()
+    return out
+
+
 def family_gaps_and_memorize(dev, model: str, overrides: dict, batch: int,
                              seq: int) -> dict:
     """One step's loss and global grad norm with the kernels and with their
@@ -3174,6 +3377,7 @@ def main() -> int:
     lap('build')
     kernels = phase_kernels(dev)
     kernels.update(phase_flash_kernels(dev))
+    kernels.update(phase_kernels_d256(dev))
     lap('kernel')
     bf16 = phase_serve(dev)
     launches = dict(bf16['launches'])
@@ -3221,6 +3425,10 @@ def main() -> int:
     lap('serve_mixtral')
     by_phase['serve_gpt2'] = phase_serve_gpt2(dev)['launches']
     lap('serve_gpt2')
+    # Kept apart from by_phase: the gemma phases launch only the
+    # head-width-256 instantiations, listed under their own entries.
+    gemma = phase_serve_gemma(dev)
+    lap('serve_gemma')
     for model, counts in phase_train_families(dev).items():
         by_phase[f'train_families:{model}'] = counts
     lap('train_families')
@@ -3259,6 +3467,24 @@ def main() -> int:
                if name.startswith('paged_decode') else {}),
             **({'branch': 'quant'} if name.endswith('_int8') else {}),
             **kernels[name]))
+    # The head-width-256 instantiations: launched only by the gemma
+    # phases; the float branch's main path is serve_gemma, the int8
+    # branch's serve_gemma_int8.
+    gemma_by_phase = gemma['launches']
+    for entry in entries[:4]:
+        name = entry['name']
+        quant = name.endswith('_int8')
+        entries.append(dict(
+            name=f'{name}_d256', route='cuda', source=entry['source'],
+            replaces=entry['replaces'], head_dim=GEMMA_D,
+            launches=gemma_by_phase['serve_gemma_int8' if quant
+                                    else 'serve_gemma'][name],
+            launches_by_phase={p: c[name] for p, c in gemma_by_phase.items()},
+            **({'launches_by_s': {'serve_gemma_spec': gemma['by_s'][
+                'int8' if quant else 'float']}}
+               if name.startswith('paged_decode') else {}),
+            **({'branch': 'quant'} if quant else {}),
+            **kernels[f'{name}_d256']))
     log(f'card: {card}')
     log(json.dumps({'kernels': entries}))
     log(json.dumps({'ok': True, 'device': {

@@ -8,9 +8,9 @@ in one process on one card.
         [--chunks 4,8,16,32]
 
 Builds `--old` (a paged_decode.cu whose `paged_decode_launch` and
-`paged_decode_int8_launch` take the arguments before the split walk's:
-no workspace, counters or chunk length) with the package's nvcc flags
-into skypilot_tpu_torch/_build/ (git-ignored), in parallel with the
+`paged_decode_int8_launch` take the current arguments, the split walk's
+workspace, counters and chunk length included) with the package's nvcc
+flags into skypilot_tpu_torch/_build/ (git-ignored), in parallel with the
 current kernel, and prints both ptxas reports and build times.  At
 chip_smoke.py's decode shape (batch 8, contexts 100-4000 over a shuffled
 pool of 16-token pages, H 32, kvh 8, d 128, bf16 q; the same seeded
@@ -46,11 +46,13 @@ from skypilot_tpu_torch.ops import paged_attention as pa  # noqa: E402  pylint: 
 
 def _old_decode(lib):
     """A function with paged_decode_attention's arguments that launches
-    the old library's kernel, as the old wrapper did."""
+    the old library's kernel as the current wrapper does (decode_split's
+    chunk, the wrapper's scratch, which both versions leave with its
+    counters at 0)."""
     fns = {}
     for quant, sym, argtypes in (
-            (False, 'paged_decode_launch', pa._ARGTYPES[:-3]),  # pylint: disable=protected-access
-            (True, 'paged_decode_int8_launch', pa._ARGTYPES_INT8[:-3])):  # pylint: disable=protected-access
+            (False, 'paged_decode_launch', pa._ARGTYPES),  # pylint: disable=protected-access
+            (True, 'paged_decode_int8_launch', pa._ARGTYPES_INT8)):  # pylint: disable=protected-access
         fn = getattr(lib, sym)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
@@ -66,10 +68,18 @@ def _old_decode(lib):
         head = (q.data_ptr(), pk.data_ptr(), pv.data_ptr())
         if key_scale is not None:
             head += (key_scale.data_ptr(), value_scale.data_ptr())
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        units = b * kvh * -(-(h // kvh * s) // pa.ROWS_PER_BLOCK)
+        chunk, n_split = pa.decode_split(
+            n_read, ps, units, torch.cuda.get_device_properties(
+                q.device).multi_processor_count)
+        work, counters = pa._workspace(  # pylint: disable=protected-access
+            q.device, stream,
+            units * n_split * pa.ROWS_PER_BLOCK * (d + 2), units)
         err = fns[key_scale is not None](
             *head, table.data_ptr(), mask3.data_ptr(), out.data_ptr(), b, h,
             s, d, kvh, ps, n_read, float(scale), _build.dtype_code(q.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            stream, work.data_ptr(), counters.data_ptr(), chunk)
         _build.check(err, 'old paged_decode launch')
         return out
     return run

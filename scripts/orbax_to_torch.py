@@ -9,10 +9,10 @@ into the port's format (skypilot_tpu_torch/train/checkpoint.py).
 Reads one step of the source (the latest unless --src-step) in the
 reference's split layout (Composite items params / opt_state / step),
 passes its params through `skypilot_tpu_torch.bridge.params_from_jax`
-(any ported family: llama, qwen, gpt2, Mixtral; scanned or unscanned
-layers, LoRA adapters; --model and --model-overrides name the config, as
-for the trainer) and writes the
-port's checkpoint under --dst:
+(any ported family: llama, qwen, gpt2, Mixtral, gemma; scanned or
+unscanned layers, LoRA adapters; --model and --model-overrides name the
+config, as for the trainer) and writes the port's checkpoint under
+--dst:
 
   - by default a resumable checkpoint at the saved step: params, the
     step, and the AdamW state (its count, and its first and second

@@ -94,7 +94,8 @@ def main() -> int:
         raise SystemExit(f'old kernel build failed:\n{old_log}')
     for tag, log in (('old', old_log), ('new', new_log)):
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if ('Compiling entry' in line or 'registers' in line
+                    or 'spill' in line):
                 c.log(f'{tag}: {line.strip()}')
     old = _old_prefill(ctypes.CDLL(str(old_lib)))
     dev = torch.device('cuda')

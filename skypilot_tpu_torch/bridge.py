@@ -1,7 +1,7 @@
 """Weights from the JAX package's param trees, for the port's models.
 
 `params_from_jax` takes a flax param tree of any ported family (llama,
-qwen, gpt2, Mixtral) as nested dicts of numpy arrays (e.g.
+qwen, gpt2, Mixtral, gemma) as nested dicts of numpy arrays (e.g.
 `jax.tree.map(np.asarray, params)` on the JAX side) and returns the
 port's state_dict.  It reads both layer layouts: the scanned `'layers'`
 subtree whose leaves carry a leading [L] axis (the reference's default,
@@ -19,10 +19,11 @@ A DenseGeneral bias [*out] (qwen's q/k/v, gpt2's every projection)
 becomes `<proj>_bias` [prod(out)].  tok_embed [V, D], gpt2's pos_embed
 [max_seq_len, D] and Mixtral's expert-stacked gate_proj / up_proj
 [E, D, F] and down_proj [E, F, D] (bare params, not kernels) carry over
-as they are.  RMSNorm `scale` [D] becomes `<norm>.weight`; gpt2's
+as they are.  RMSNorm `scale` [D] becomes `<norm>.weight` (gemma's, an
+offset from 1, as stored: `GemmaRMSNorm` adds the 1); gpt2's
 LayerNorms (`ln_1`, `ln_2`, `ln_f`: scale and bias) become
 attention_norm, mlp_norm and final_norm `.weight` / `.bias`.  A tree
-with no lm_head (a tied head: gpt2, the small qwens) gives none.
+with no lm_head (a tied head: gpt2, the small qwens, gemma) gives none.
 
 LoRA adapters (`<proj>_lora` subtrees, a [in, rank] and b [rank,
 prod(out)]) become `<part>.<proj>_lora.a` / `.b` as they are: the port

@@ -68,12 +68,40 @@ __device__ __forceinline__ void load_b_nk_x2(uint32_t (&b0)[2],
       : "r"(addr));
 }
 
+// Where a warp's Q A-fragments come from: an array held in registers
+// for the whole loop (up to d 128; `q_frag` returns its entry), or the
+// block's Q tile in shared memory, read again at every tile into `buf`
+// (QSmem: d 256, where 64 more registers a thread would spill the output
+// accumulator).
+template <int K>
+__device__ __forceinline__ const uint32_t (&q_frag(
+    const uint32_t (&qa)[K][4], int kk, uint32_t (&)[4], int))[4] {
+  return qa[kk];
+}
+
+template <typename T>
+struct QSmem {
+  const T* tile;  // [rows, ld] in shared memory
+  int ld;
+  int r0;         // the warp's first row
+};
+
+template <typename T>
+__device__ __forceinline__ const uint32_t (&q_frag(
+    const QSmem<T>& q, int kk, uint32_t (&buf)[4], int lane))[4] {
+  flash::load_a(buf, q.tile, q.ld, q.r0, kk * 16, lane);
+  return buf;
+}
+
 // One warp's 16 query rows: lane holds rows g = lane / 4 (i = 0) and
 // g + 8 (i = 1) of the warp's slice, columns 2t, 2t + 1 (t = lane % 4) of
-// each 8-column output tile.
-template <typename T, int D>
+// each 8-column output tile.  The scores run over the whole head width
+// D; the output covers DO of its columns from the step's `v0` (DO < D
+// when two warps share 16 rows and split the PV product's columns: each
+// computes the same scores, m and l).
+template <typename T, int D, int DO = D>
 struct FwdRows {
-  static constexpr int NT = D / 8;  // 8-column tiles of the output
+  static constexpr int NT = DO / 8;  // 8-column tiles of the output
   float o[NT][4];
   float m[2];
   float l[2];
@@ -88,8 +116,9 @@ struct FwdRows {
   }
 
   // Fold one tile of kTileCols columns into the state.  qa: the rows'
-  // A fragments over d (D / 16 of them); Ks, Vs: [kTileCols, ld] tiles in
-  // shared memory.  The policy supplies, for tile column c:
+  // A fragments over d (D / 16 of them, `q_frag`); Ks, Vs: [kTileCols,
+  // ld] tiles in shared memory; v0: the first output column.  The policy
+  // supplies, for tile column c:
   //   typename Policy::Col col(c)          what the column carries
   //   bool walk(col)                       false: the column takes no part
   //                                        (p = 0, not in l)
@@ -98,10 +127,10 @@ struct FwdRows {
   //                                        masked
   //   float pscale(col)                    a weight on p in PV only (l sums
   //                                        the unweighted p)
-  template <class Policy>
-  __device__ __forceinline__ void step(const uint32_t (&qa)[D / 16][4],
-                                       const T* Ks, const T* Vs, int ld,
-                                       int lane, const Policy& pol) {
+  template <class Policy, class Q>
+  __device__ __forceinline__ void step(const Q& qa, const T* Ks,
+                                       const T* Vs, int ld, int lane,
+                                       const Policy& pol, int v0 = 0) {
     const int t = lane % 4;
     float s[8][4];
 #pragma unroll
@@ -110,12 +139,14 @@ struct FwdRows {
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t buf[4];
+      const uint32_t(&a)[4] = q_frag(qa, kk, buf, lane);
 #pragma unroll
       for (int n2 = 0; n2 < 4; ++n2) {
         uint32_t b0[2], b1[2];
         load_b_nk_x2(b0, b1, Ks, ld, n2 * 16, kk * 16, lane);
-        Elem<T>::mma(s[2 * n2], qa[kk], b0);
-        Elem<T>::mma(s[2 * n2 + 1], qa[kk], b1);
+        Elem<T>::mma(s[2 * n2], a, b0);
+        Elem<T>::mma(s[2 * n2 + 1], a, b1);
       }
     }
 
@@ -174,7 +205,7 @@ struct FwdRows {
 #pragma unroll
       for (int n2 = 0; n2 < NT / 2; ++n2) {
         uint32_t b0[2], b1[2];
-        flash::load_b_kn_x2(b0, b1, Vs, ld, kk * 16, n2 * 16, lane);
+        flash::load_b_kn_x2(b0, b1, Vs, ld, kk * 16, v0 + n2 * 16, lane);
         Elem<T>::mma(o[2 * n2], a, b0);
         Elem<T>::mma(o[2 * n2 + 1], a, b1);
       }

@@ -54,7 +54,13 @@
 //     (8 bf16/f16, 16 int8 or 4 f32 elements): a position's d elements
 //     are spread over d / 8 (bf16), d / 16 (int8) or d / 4 (f32) lanes,
 //     so a warp covers 2-8 positions a load and the q.k reduction takes
-//     only log2 of that many shuffles.
+//     only log2 of that many shuffles.  At d 256 that layout would give
+//     f32 pools 64 lanes a position and int8 pools 16 int8 elements of
+//     q and of each accumulator row a lane (past the registers at d 128
+//     already): there each lane holds 8 elements of every position
+//     instead (one 16-byte word of bf16/f16, two of f32, an 8-byte half
+//     of one of int8), the warp covers one position a load, and the q.k
+//     sum takes 5 shuffles; the cp.async copies stay 16 bytes a lane.
 //   - The G*S query rows of a kv head (4 at llama3-8b decode) ride the
 //     same loads (4 rows a block), so each K/V element read feeds all of
 //     them.  q is pre-multiplied by scale * log2(e) and the softmax runs
@@ -65,9 +71,10 @@
 // -1e30 (not -inf); l == 0 gives a zero output; a chunk that sees no
 // live column contributes nothing to the merge; null-page entries (and
 // their scales) are hidden by the mask alone.
-// ptxas (-Xptxas -v, CUDA 12.8, sm_90a), no spills: int8 pools 243
-// registers a thread at d 128 and 234-237 at d 64; float pools 128 at
-// d 128, 125 at d 64 (90 for f32).
+// ptxas (-Xptxas -v, CUDA 12.8, sm_90a), no spills: int8 pools 168
+// registers a thread at d 256, 243 at d 128 and 234-237 at d 64; float
+// pools 167 at d 256 (168 for f32), 128 at d 128, 125 at d 64 (90 for
+// f32).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -130,6 +137,33 @@ __device__ __forceinline__ void unpack16(const uint4 v,
   }
 }
 
+// The N elements a lane holds of one position, as f32 (exact), from
+// shared memory: one 16-byte word (d <= 128), two (f32 pools at d 256)
+// or half of one (int8 pools at d 256).
+template <typename KT, int N>
+__device__ __forceinline__ void load_f(const unsigned char* p,
+                                       float (&f)[N]) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(KT));
+  if constexpr (kBytes % 16 == 0) {
+    constexpr int kW = 16 / sizeof(KT);
+#pragma unroll
+    for (int w = 0; w < kBytes / 16; ++w) {
+      float t[kW];
+      unpack16<KT>(*reinterpret_cast<const uint4*>(p + 16 * w), t);
+#pragma unroll
+      for (int i = 0; i < kW; ++i) f[w * kW + i] = t[i];
+    }
+  } else {
+    static_assert(kBytes == 8 && sizeof(KT) == 1, "8 int8 elements");
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[j] = static_cast<float>(static_cast<int8_t>(v.x >> (8 * j)));
+      f[4 + j] = static_cast<float>(static_cast<int8_t>(v.y >> (8 * j)));
+    }
+  }
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
@@ -149,7 +183,13 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename KT, int D>
 struct Cfg {
   static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
-  static constexpr int kEpl = 16 / sizeof(KT);  // elements a lane-load
+  // Elements a lane holds of each position: one 16-byte word up to d
+  // 128; at d 256 the head width is split over the whole warp, 8
+  // elements a lane whatever the pools' type (a word of bf16/f16, two of
+  // f32, half of one of int8), so that a lane's q and accumulators stay
+  // 8 floats a row and nothing spills to local memory.
+  static constexpr int kEpl = D > 128 ? D / 32 : 16 / sizeof(KT);
+  static constexpr int kLoadBytes = kEpl * sizeof(KT);  // 8, 16 or 32
   static constexpr int kLpr = D / kEpl;         // lanes a position
   static constexpr int kPpw = 32 / kLpr;        // positions a warp-load
   static constexpr int kNpos = kSlab / kPpw;    // a lane's slab positions
@@ -343,9 +383,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int n = 0; n < C::kNpos; ++n) {
         const int p = n * C::kPpw + pp;
         float kf[kEpl];
-        unpack16<KT>(*reinterpret_cast<const uint4*>(
-                         st + p * D * sizeof(KT) + dl * 16),
-                     kf);
+        load_f<KT>(st + p * D * sizeof(KT) + dl * C::kLoadBytes, kf);
         float ksc = 1.f;
         if constexpr (C::kQuant)
           ksc = reinterpret_cast<const float*>(st + 2 * C::kSlabBytes)[p];
@@ -381,9 +419,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int n = 0; n < C::kNpos; ++n) {
         const int p = n * C::kPpw + pp;
         float vf[kEpl];
-        unpack16<KT>(*reinterpret_cast<const uint4*>(
-                         st + C::kSlabBytes + p * D * sizeof(KT) + dl * 16),
-                     vf);
+        load_f<KT>(st + C::kSlabBytes + p * D * sizeof(KT) +
+                       dl * C::kLoadBytes,
+                   vf);
         float vsc = 1.f;
         if constexpr (C::kQuant)
           vsc = reinterpret_cast<const float*>(st + 2 * C::kSlabBytes)[kSlab + p];
@@ -545,6 +583,10 @@ cudaError_t launch_d(const void* q, const void* pk, const void* pv,
                                       n_read, chunk_pages, scale, stream);
     case 128:
       return launch_kernel<T, KT, 128>(q, pk, pv, ks, vs, table, mask, out,
+                                       work, counters, B, H, S, kvh, ps,
+                                       n_read, chunk_pages, scale, stream);
+    case 256:
+      return launch_kernel<T, KT, 256>(q, pk, pv, ks, vs, table, mask, out,
                                        work, counters, B, H, S, kvh, ps,
                                        n_read, chunk_pages, scale, stream);
     default:

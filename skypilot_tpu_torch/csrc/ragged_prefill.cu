@@ -80,11 +80,20 @@
 //     the key scale multiplies the score after `scale`, the value scale
 //     weighs p before p is rounded for PV (one rounding of p * vs, where
 //     the float branch rounds p), and l sums the unscaled p.
+//   - Head width 256 (`Layout::kWide`): a warp's f32 output tile alone
+//     would be 128 registers a lane.  So the block runs 8 warps, two on
+//     each 16 query rows: both compute the rows' scores over the whole
+//     head (the same m and l; Q's fragments read from the Q tile at
+//     every tile, not held), each the PV product for its half of the
+//     output columns.  The scores are computed twice (1.5x the tensor
+//     work of one pass); the block's 185-187 KB of shared memory (Q, the
+//     ring, the table) leave one block of 8 warps an SM.
 // ptxas (-Xptxas -v, CUDA 12.8, sm_90a) reports no spills and 0 bytes of
-// stack for every instantiation; registers a thread: float branch 228
-// (d 128) and 192 (d 64), quant branch 246 and 208, bf16 and f16 alike;
-// static shared memory 1024 / 768 bytes (float) and 2048 / 1792 (quant)
-// beside the dynamic ring.  chip_smoke.py prints the report at build.
+// stack for every instantiation; registers a thread: float branch 196
+// (d 256), 229 (d 128) and 194 (d 64), quant branch 223, 246 and 209,
+// bf16 and f16 alike; static shared memory 1536 / 1024 / 768 bytes
+// (float) and 2560 / 2048 / 1792 (quant) beside the dynamic ring.
+// chip_smoke.py prints the report at build.
 #include "attn_fwd_mainloop.cuh"
 
 #include <type_traits>
@@ -93,7 +102,6 @@ namespace {
 
 using flash::Elem;
 using flash::kNegInf;
-using flash::kThreads;  // 4 warps of 16 query rows each
 
 constexpr int kBR = 64;                   // query rows per block
 constexpr int kBC = attn::kTileCols;      // cache columns per tile
@@ -103,6 +111,13 @@ constexpr int kMasked = 0x7fffffff;       // a walked column kv_mask hides
 template <typename T, typename KT, int D>
 struct Layout {
   static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  // Up to d 128: 4 warps of 16 query rows, two blocks an SM.  At d 256
+  // (kWide, the head comment): 8 warps, two a 16-row slice, each its
+  // half (DO) of the output columns, one block an SM.
+  static constexpr bool kWide = D > 128;
+  static constexpr int kThreads = kWide ? 256 : flash::kThreads;
+  static constexpr int kMinBlocks = kWide ? 1 : 2;
+  static constexpr int DO = kWide ? D / 2 : D;  // output columns a warp
   static constexpr int LD = D + 8;        // 16-bit tile row stride
   static constexpr int LD8 = D + 16;      // int8 tile row stride (bytes)
   static constexpr size_t kTile = static_cast<size_t>(kBC) * LD * 2;
@@ -169,7 +184,8 @@ __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
 }
 
 template <typename T, typename KT, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Layout<T, KT, D>::kThreads,
+                                  Layout<T, KT, D>::kMinBlocks)
     ragged_prefill_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
                           const KT* __restrict__ vc,
                           const float* __restrict__ ksc,
@@ -181,6 +197,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                           int n_read, int ps, int window, float scale) {
   using Lay = Layout<T, KT, D>;
   constexpr bool kQuant = Lay::kQuant;
+  constexpr int kThreads = Lay::kThreads;
+  constexpr int DO = Lay::DO;
   constexpr int LD = Lay::LD;
   constexpr int LDS = kQuant ? Lay::LD8 : LD;      // ring row stride (elems)
   constexpr int kVec = 16 / sizeof(KT);            // elements per 16 bytes
@@ -204,7 +222,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int GS = G * S;
   const int r0 = blockIdx.y * kBR;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  // The warp's 16-row slice, and its first output column (d 256: warps
+  // w and w + 4 share a slice, each its half of the columns).
+  const int warp = Lay::kWide ? tid % 128 / 32 : tid / 32;
+  const int v0 = Lay::kWide ? tid / 128 * DO : 0;
   const int lane = tid % 32;
   const int bs = base[b];
   const size_t head_off = (static_cast<size_t>(b) * kvh + h) * L;
@@ -297,9 +318,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   pol.window = window;
   pol.qpos[0] = bs + (r0 + r_loc) % S;
   pol.qpos[1] = bs + (r0 + r_loc + 8) % S;
-  attn::FwdRows<T, D> acc;
+  attn::FwdRows<T, D, DO> acc;
   acc.init();
-  uint32_t qa[D / 16][4];
+  // Q's A fragments: in registers (loaded once Q has landed), or read
+  // from the Q tile at every tile (d 256).
+  std::conditional_t<Lay::kWide, attn::QSmem<T>, uint32_t[D / 16][4]> qa;
+  if constexpr (Lay::kWide) qa = attn::QSmem<T>{Qs, LD, warp * 16};
 
   int j = next_live(0);
   if (j < n_tiles) {
@@ -320,7 +344,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     attn::cp_async16(Qs + r * LD + c, src, ok);
   }
   attn::cp_async_commit();
-  bool q_ready = false;
+  [[maybe_unused]] bool q_ready = false;
   int st = 0;
   while (j < n_tiles) {
     attn::cp_async_wait<0>();     // Q and tile j have landed ...
@@ -331,11 +355,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       issue(jn, st ^ 1);
       meta_load(jn);
     }
-    if (!q_ready) {
+    if constexpr (!Lay::kWide) {
+      if (!q_ready) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        flash::load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
-      q_ready = true;
+        for (int kk = 0; kk < D / 16; ++kk)
+          flash::load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
+        q_ready = true;
+      }
     }
     const T* Kt;
     const T* Vt;
@@ -369,7 +395,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     pol.key = col_key[st];
     pol.ks = col_ks[st];
     pol.vs = col_vs[st];
-    acc.step(qa, Kt, Vt, LD, lane, pol);
+    acc.step(qa, Kt, Vt, LD, lane, pol, v0);
     if (jn < n_tiles) meta_store(st ^ 1);
     st ^= 1;
     j = jn;
@@ -404,9 +430,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (acc.m[i] != kNegInf) continue;
       acc.l[i] += static_cast<float>(count);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc.o[n][2 * i] += colsum[n * 8 + 2 * t];
-        acc.o[n][2 * i + 1] += colsum[n * 8 + 2 * t + 1];
+      for (int n = 0; n < DO / 8; ++n) {
+        acc.o[n][2 * i] += colsum[v0 + n * 8 + 2 * t];
+        acc.o[n][2 * i + 1] += colsum[v0 + n * 8 + 2 * t + 1];
       }
     }
   }
@@ -418,9 +444,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (row >= GS) continue;
     const float l_safe = acc.l[i] == 0.f ? 1.f : acc.l[i];
     T* orow = out + ((static_cast<size_t>(b) * S + row % S) * H + h * G +
-                     row / S) * D + 2 * t;
+                     row / S) * D + v0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DO / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) = Elem<T>::pack(
           acc.o[n][2 * i] / l_safe, acc.o[n][2 * i + 1] / l_safe);
   }
@@ -441,7 +467,7 @@ cudaError_t launch_kernel(const void* q, const void* kc, const void* vc,
   const int G = H / kvh;
   const dim3 grid(B * kvh, (G * S + kBR - 1) / kBR);
   ragged_prefill_kernel<T, KT, D>
-      <<<grid, kThreads, Lay::bytes(n_read), stream>>>(
+      <<<grid, Lay::kThreads, Lay::bytes(n_read), stream>>>(
           static_cast<const T*>(q), static_cast<const KT*>(kc),
           static_cast<const KT*>(vc), ksc, vsc, table, base, kv_mask,
           static_cast<T*>(out), H, S, kvh, L, n_read, ps, window, scale);
@@ -462,6 +488,10 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc,
                                       ps, window, scale, stream);
     case 128:
       return launch_kernel<T, KT, 128>(q, kc, vc, ksc, vsc, table, base,
+                                       kv_mask, out, B, H, S, kvh, L, n_read,
+                                       ps, window, scale, stream);
+    case 256:
+      return launch_kernel<T, KT, 256>(q, kc, vc, ksc, vsc, table, base,
                                        kv_mask, out, B, H, S, kvh, L, n_read,
                                        ps, window, scale, stream);
     default:

@@ -1,10 +1,11 @@
 """Model registry of the port: name -> (torch module, config).
 
 Families: llama-* / llama3* / mistral (models/llama.py), mixtral-* MoE
-(models/moe.py), gpt2-* (models/gpt2.py), qwen* (models/qwen.py), as
-skypilot_tpu.models resolves them, in its lookup order (deepseek, moe,
-llama, gemma, gpt2, qwen).  gemma-* and deepseek-* are not ported yet:
-their names raise a ValueError that says what they wait for.
+(models/moe.py), gemma-* (models/gemma.py), gpt2-* (models/gpt2.py),
+qwen* (models/qwen.py), as skypilot_tpu.models resolves them, in its
+lookup order (deepseek, moe, llama, gemma, gpt2, qwen).  deepseek-* is
+not ported yet: its names raise a ValueError that says what they wait
+for.
 """
 from __future__ import annotations
 
@@ -14,14 +15,15 @@ import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 
-_NOT_PORTED = ('gemma', 'deepseek')
+_NOT_PORTED = ('deepseek',)
 
 
 def _families():
     """(config module, model class, config class) in lookup order."""
-    from skypilot_tpu_torch.models import gpt2, llama, moe, qwen
+    from skypilot_tpu_torch.models import gemma, gpt2, llama, moe, qwen
     return ((moe, moe.Mixtral, moe.MoEConfig),
             (llama, llama.Llama, llama.LlamaConfig),
+            (gemma, gemma.Gemma, gemma.GemmaConfig),
             (gpt2, gpt2.Gpt2, gpt2.Gpt2Config),
             (qwen, qwen.Qwen, qwen.QwenConfig))
 
@@ -38,9 +40,9 @@ def get_config(name: str, **overrides: Any) -> Any:
     """The config `get_model` would build, without building the model."""
     if name.split('-')[0] in _NOT_PORTED:
         raise ValueError(
-            f'model {name!r}: the gemma and deepseek families are not ported '
-            "yet (ROADMAP.md queue 1: 'The other families'); they need head "
-            'widths 256 and 576, which the kernels do not take yet '
+            f'model {name!r}: the deepseek family is not ported yet '
+            "(ROADMAP.md queue 1: 'The other families'); its absorbed "
+            'decode needs kernel 4 at head width 576 over one KV head '
             "(ROADMAP.md queue 2: 'Head widths other than 64 and 128')")
     for mod, _, _ in _families():
         if name in mod.CONFIGS:
@@ -97,6 +99,7 @@ def flops_per_token(config: Any, context: int) -> float:
 
 
 def available_models():
-    from skypilot_tpu_torch.models import gpt2, llama, moe, qwen
+    from skypilot_tpu_torch.models import gemma, gpt2, llama, moe, qwen
     return (sorted(llama.CONFIGS) + sorted(moe.CONFIGS)
-            + sorted(gpt2.CONFIGS) + sorted(qwen.CONFIGS))
+            + sorted(gemma.CONFIGS) + sorted(gpt2.CONFIGS)
+            + sorted(qwen.CONFIGS))

@@ -3,8 +3,8 @@
 Port of skypilot_tpu/models/llama.py on its serving path
 (`decode=True`) and its cacheless training forward: RMSNorm, split-half
 rope, grouped-query attention (against a KV cache, or over the whole
-sequence through the flash-attention kernels), the SiLU-gated MLP and
-the untied f32 head.  The
+sequence through the flash-attention kernels), the gated MLP (SiLU, or
+`activation='gelu'`) and the untied f32 head.  The
 mixed precision follows the reference: activations and matmuls in
 `dtype`, RMSNorm and rope in f32, attention scores in f32, logits in
 f32 (the head runs in f32, so its weight is kept in f32).
@@ -42,11 +42,12 @@ delta of each targeted projection (`LoraAdapter`, the reference's
 `maybe_lora`); under weight-only int8 the adapters stay float, as the
 reference's `quantize_params_int8` leaves them.
 
-The other families (models/qwen.py, gpt2.py, moe.py) subclass `Llama`
-and `Block` and share these forwards: q/k/v biases
+The other families (models/qwen.py, gpt2.py, moe.py, gemma.py) subclass
+`Llama` and `Block` and share these forwards: q/k/v biases
 (`attention_bias`), a head tied to the embedding (`tie_embeddings`),
 learned positions and no rope (gpt2), a routed MLP whose aux loss
-`train_forward(return_aux=True)` sums (Mixtral).
+`train_forward(return_aux=True)` sums (Mixtral), plus-one norms, a
+scaled embedding and a softcapped head (gemma).
 """
 from __future__ import annotations
 
@@ -66,6 +67,9 @@ from skypilot_tpu_torch.ops import ragged_prefill as rp
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
            'float16': torch.float16}
+# The gated MLP's activations (`LlamaConfig.activation`).
+_ACTIVATIONS = {'silu': F.silu,
+                'gelu': lambda g: F.gelu(g, approximate='tanh')}
 
 
 def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
@@ -120,6 +124,10 @@ class LlamaConfig:
     lora_alpha: float = 16.0
     lora_targets: Tuple[str, ...] = ('q_proj', 'k_proj', 'v_proj',
                                      'o_proj')
+    # The gated MLP's activation on the gate: 'silu' (Llama's SwiGLU) or
+    # 'gelu' (tanh-approximate, Gemma's GeGLU); the reference reads the
+    # same field where a config has it.
+    activation: str = 'silu'
 
     def __post_init__(self):
         check_config(self)
@@ -141,6 +149,9 @@ def check_config(cfg: Any) -> None:
                          f'{cfg.quantize!r}.')
     if cfg.lora_rank < 0:
         raise ValueError(f'lora_rank must be >= 0, got {cfg.lora_rank}')
+    if getattr(cfg, 'activation', 'silu') not in _ACTIVATIONS:
+        raise ValueError(f'activation must be one of {sorted(_ACTIVATIONS)}, '
+                         f'got {cfg.activation!r}')
     if 'lora_targets' in cfg.__dataclass_fields__:
         object.__setattr__(cfg, 'lora_targets', tuple(cfg.lora_targets))
     object.__setattr__(cfg, 'dtype', as_dtype(cfg.dtype))
@@ -839,7 +850,8 @@ class MLP(nn.Module):
         x = x.to(self.cfg.dtype)
         gate = _project(self, 'gate_proj', x)
         up = _project(self, 'up_proj', x)
-        return _project(self, 'down_proj', F.silu(gate) * up)
+        act = _ACTIVATIONS[self.cfg.activation]
+        return _project(self, 'down_proj', act(gate) * up)
 
 
 class Block(nn.Module):
@@ -847,14 +859,17 @@ class Block(nn.Module):
     the caller's `attend`, then `output`), mlp_norm, mlp.  Other families
     give their own norms, attention and MLP in the same places (gpt2), or
     their own `_rest` (Mixtral's routed MLP).  `forward` returns (x, the
-    block's router aux loss or None)."""
+    block's router aux loss or None).  `norm_cls` is the class of both
+    norms (Gemma's keeps its weight as an offset from 1)."""
+
+    norm_cls = RMSNorm
 
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
         args = (cfg.dim, cfg.norm_eps, cfg.dtype, cfg.param_dtype, device)
-        self.attention_norm = RMSNorm(*args)
+        self.attention_norm = self.norm_cls(*args)
         self.attention = Attention(cfg, device)
-        self.mlp_norm = RMSNorm(*args)
+        self.mlp_norm = self.norm_cls(*args)
         self.mlp = MLP(cfg, device)
 
     def forward(self, x, rope, attend
@@ -893,14 +908,17 @@ class Llama(nn.Module):
 
     The other families (models/qwen.py, gpt2.py, moe.py) are subclasses
     that change only what differs: `block_cls` and `norm_cls`, `embed`
-    (gpt2 adds learned positions), `rope` (gpt2 has none), a tied head
-    (`cfg.tie_embeddings`: the logits come from tok_embed), and the init
-    scales (`_init_std`).  The cache plans, the remat policies and the
-    attention closures of `hidden` and `train_forward` are shared."""
+    (gpt2 adds learned positions, gemma scales by sqrt(dim)), `rope`
+    (gpt2 has none), a tied head (`cfg.tie_embeddings`: the logits come
+    from tok_embed), `head` (gemma's final-logit softcap), and the init
+    values (`_init_std`, `norm_init`).  The cache plans, the remat
+    policies and the attention closures of `hidden` and `train_forward`
+    are shared."""
 
     block_cls = Block
     norm_cls = RMSNorm
     embed_std = 1.0
+    norm_init = 1.0    # every norm's weight (gemma's offsets: 0)
 
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
@@ -932,8 +950,8 @@ class Llama(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The reference's initializers: normal kernels and embeddings of
-        `_init_std`, unit norm scales, zero biases.  An int8 model draws
-        each weight as the float model does
+        `_init_std`, norm scales of `norm_init`, zero biases.  An int8
+        model draws each weight as the float model does
         (same order, shapes and dtypes, so the same generator gives the
         same values) and stores its quantization of the weight cast to
         param_dtype, one weight at a time.  LoRA adapters are drawn after
@@ -946,7 +964,7 @@ class Llama(nn.Module):
             if name.endswith('_scale') or is_lora(name):
                 continue
             if name.endswith('.weight'):
-                p.fill_(1.0)
+                p.fill_(self.norm_init)
                 continue
             if name.endswith('bias'):
                 p.zero_()

@@ -249,8 +249,11 @@ def _check_cuda(what: str, tensors, q: torch.Tensor) -> None:
                              '16-byte aligned')
     d = q.shape[3]
     if d not in _SUPPORTED_D:
+        when = (": the flash kernels at that width come with ROADMAP.md "
+                "queue 1 'Gemma training and the flash kernels at head "
+                "width 256'" if d == 256 else '')
         raise ValueError(f'{what} kernel takes head_dim in {_SUPPORTED_D}, '
-                         f'got {d}')
+                         f'got {d}{when}')
     if q.dtype not in _SUPPORTED_DTYPES:
         raise ValueError(f'{what} kernel runs on the tensor cores and takes '
                          f'bfloat16 or float16, got {q.dtype}')

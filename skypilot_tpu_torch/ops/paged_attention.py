@@ -36,7 +36,7 @@ launches_int8 = 0
 launches_by_s: Dict[int, int] = {}
 launches_int8_by_s: Dict[int, int] = {}
 
-_SUPPORTED_D = (64, 128)
+_SUPPORTED_D = (64, 128, 256)
 _SUPPORTED_PS = (8, 16, 32)
 # paged_decode_launch(pointers..., ints..., scale, dtype code, stream,
 # workspace, counters, chunk pages).

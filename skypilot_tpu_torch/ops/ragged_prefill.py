@@ -26,7 +26,7 @@ from skypilot_tpu_torch.ops import grouped_attention as ga
 launches = 0
 launches_int8 = 0
 
-_SUPPORTED_D = (64, 128)
+_SUPPORTED_D = (64, 128, 256)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float16)
 # The kernel holds a row's page table in shared memory.
 _MAX_PAGES = 4096

@@ -79,6 +79,14 @@ class TrainConfig:
 
 def check_supported(config: TrainConfig) -> None:
     """Raise for every setting this slice does not port."""
+    from skypilot_tpu_torch.models.gemma import GemmaConfig
+    if isinstance(models_lib.get_config(config.model,
+                                        **config.model_overrides),
+                  GemmaConfig):
+        raise ValueError(
+            f'model {config.model!r}: training the gemma family is not '
+            "ported yet (ROADMAP.md queue 1: 'Gemma training and the flash "
+            "kernels at head width 256'); its configs serve")
     big = [a for a in _AXES if getattr(config.mesh, a) > 1]
     if big:
         raise ValueError(f'mesh axes {big} > 1: multi-device training is not '

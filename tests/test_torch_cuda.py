@@ -158,9 +158,20 @@ def _decode_case(dev, dtype, *, b, h, kvh, d, ps, ctxs, s=1, window=None,
     (12, 12, 64, 16, [90, 17], 5, None, ()),
     (28, 4, 128, 16, [300, 17], 1, None, ()),
     (28, 4, 128, 16, [90, 17], 5, None, ()),
+    # gemma at head width 256: gemma-7b's 16 over 16 (a group of 1) and
+    # gemma-2b's 8 over 1 (a group of 8), at S 1, 5 and 64, with a null
+    # page and a window.
+    (16, 16, 256, 16, [300, 17], 1, None, (1,)),
+    (16, 16, 256, 16, [90, 17], 5, 40, ()),
+    (16, 16, 256, 16, [200, 3], 64, None, ()),
+    (8, 1, 256, 16, [700, 31, 2], 1, None, (2,)),
+    (8, 1, 256, 16, [90, 17], 5, None, ()),
+    (8, 1, 256, 8, [130, 64], 64, 100, ()),
 ], ids=['gqa2', 'mqa_d64_ps8', 'g8_rows_over_block', 'llama3_8b',
         'window_ps32', 'null_pages', 'multi_query', 'gpt2_g1_d64',
-        'gpt2_g1_d64_s5', 'qwen2_7b_g7', 'qwen2_7b_g7_s5'])
+        'gpt2_g1_d64_s5', 'qwen2_7b_g7', 'qwen2_7b_g7_s5', 'g1_d256_null',
+        'g1_d256_s5_window', 'g1_d256_s64', 'g8_d256_null', 'g8_d256_s5',
+        'g8_d256_s64_window_ps8'])
 def test_paged_decode_kernel_matches_plain(dev, dtype, h, kvh, d, ps, ctxs,
                                            s, window, null_last):
     q, pk, pv, table, mask = _decode_case(
@@ -195,21 +206,26 @@ def _quantized(pool, poison_null):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
-@pytest.mark.parametrize('h,kvh,d,ps,ctxs,window,null_last', [
-    (4, 2, 128, 16, [5, 37], None, ()),
-    (4, 1, 64, 8, [16, 3], None, ()),
-    (32, 8, 128, 16, [700, 1], None, ()),
-    (4, 2, 128, 32, [40, 64], 9, ()),
-    (4, 2, 64, 16, [16, 33, 20], None, (0, 2)),
-    (12, 12, 64, 16, [300, 17], None, ()),
-    (28, 4, 128, 16, [300, 17], None, ()),
+@pytest.mark.parametrize('h,kvh,d,ps,ctxs,window,null_last,s', [
+    (4, 2, 128, 16, [5, 37], None, (), 1),
+    (4, 1, 64, 8, [16, 3], None, (), 1),
+    (32, 8, 128, 16, [700, 1], None, (), 1),
+    (4, 2, 128, 32, [40, 64], 9, (), 1),
+    (4, 2, 64, 16, [16, 33, 20], None, (0, 2), 1),
+    (12, 12, 64, 16, [300, 17], None, (), 1),
+    (28, 4, 128, 16, [300, 17], None, (), 1),
+    (16, 16, 256, 16, [300, 17], None, (1,), 1),
+    (16, 16, 256, 32, [400, 90], 50, (), 5),
+    (8, 1, 256, 16, [700, 31, 2], None, (2,), 1),
+    (8, 1, 256, 16, [200, 3], None, (), 64),
 ], ids=['gqa2', 'mqa_d64_ps8', 'llama3_8b', 'window_ps32', 'null_pages',
-        'gpt2_g1_d64', 'qwen2_7b_g7'])
+        'gpt2_g1_d64', 'qwen2_7b_g7', 'g1_d256_null',
+        'g1_d256_s5_window_ps32', 'g8_d256_null', 'g8_d256_s64'])
 def test_paged_decode_int8_kernel_matches_plain(dev, dtype, h, kvh, d, ps,
-                                                ctxs, window, null_last):
+                                                ctxs, window, null_last, s):
     q, pk, pv, table, mask = _decode_case(
         dev, torch.float32, b=len(ctxs), h=h, kvh=kvh, d=d, ps=ps,
-        ctxs=ctxs, window=window, null_last=null_last)
+        ctxs=ctxs, s=s, window=window, null_last=null_last)
     q = q.to(dtype)
     pk, ks = _quantized(pk, True)
     pv, vs = _quantized(pv, True)
@@ -219,7 +235,7 @@ def test_paged_decode_int8_kernel_matches_plain(dev, dtype, h, kvh, d, ps,
                                     probs_dtype=dtype, **kw)
     torch.cuda.synchronize()
     assert (pa.launches, pa.launches_int8) == (before[0], before[1] + 1)
-    assert got.shape == (len(ctxs), 1, h, d) and got.dtype == dtype
+    assert got.shape == (len(ctxs), s, h, d) and got.dtype == dtype
     if dtype == torch.float32:
         want = pa.paged_decode_attention_plain(q, pk, pv, table, mask,
                                                probs_dtype=dtype, **kw)
@@ -278,6 +294,9 @@ SPLIT_EDGES = {
     's4_window': ([900, 40], 4, 128, 8, 8, 2, 100),
     'ps32_d64': ([500, 31], 1, 64, 32, 8, 2, None),
     'g8_two_row_groups': ([400, 77], 1, 128, 16, 16, 2, None),
+    'd256_g1_row_sees_nothing': ([0, 600, 3], 1, 256, 16, 16, 16, None),
+    'd256_g8_long_row_s5': ([1000, 1], 5, 256, 16, 8, 1, None),
+    'd256_g8_s4_window': ([700, 40], 4, 256, 8, 8, 1, 100),
 }
 
 
@@ -430,8 +449,14 @@ def _prefill_case(dev, dtype, *, bases, s, h, kvh, d, ps, L, true_lens,
     ([2560], 512, 32, 8, 128, 16, [3000], None),
     ([512], 512, 12, 12, 64, 16, [900], None),
     ([1536], 512, 28, 4, 128, 16, [3000], None),
+    ([96, 7], 33, 2, 2, 256, 16, [120, 30], None),
+    ([200], 70, 8, 1, 256, 32, [300], 48),
+    ([1536], 512, 16, 16, 256, 16, [3000], None),
+    ([2560], 512, 8, 1, 256, 16, [3000], None),
 ], ids=['base0', 'mqa_d64', 'ragged_pad', 'window', 'llama3_8b',
-        'llama3_8b_last_chunk', 'gpt2_g1_d64', 'qwen2_7b_g7'])
+        'llama3_8b_last_chunk', 'gpt2_g1_d64', 'qwen2_7b_g7',
+        'g1_d256_ragged_pad', 'g8_d256_window', 'gemma_7b_d256',
+        'gemma_2b_d256_last_chunk'])
 def test_ragged_prefill_kernel_matches_plain(dev, bases, s, h, kvh, d, ps,
                                              true_lens, window):
     dtype = torch.bfloat16
@@ -456,8 +481,14 @@ def test_ragged_prefill_kernel_matches_plain(dev, bases, s, h, kvh, d, ps,
     ([2560], 512, 32, 8, 128, 16, [3000], None),
     ([512], 512, 12, 12, 64, 16, [900], None),
     ([1536], 512, 28, 4, 128, 16, [3000], None),
+    ([96, 7], 33, 2, 2, 256, 16, [120, 30], None),
+    ([200], 70, 8, 1, 256, 32, [300], 48),
+    ([1536], 512, 16, 16, 256, 16, [3000], None),
+    ([2560], 512, 8, 1, 256, 16, [3000], None),
 ], ids=['base0', 'mqa_d64', 'ragged_pad', 'window',
-        'llama3_8b_last_chunk', 'gpt2_g1_d64', 'qwen2_7b_g7'])
+        'llama3_8b_last_chunk', 'gpt2_g1_d64', 'qwen2_7b_g7',
+        'g1_d256_ragged_pad', 'g8_d256_window', 'gemma_7b_d256',
+        'gemma_2b_d256_last_chunk'])
 def test_ragged_prefill_int8_kernel_matches_plain(dev, bases, s, h, kvh, d,
                                                   ps, true_lens, window):
     dtype = torch.bfloat16
@@ -498,6 +529,12 @@ PREFILL_EDGES = {
                           40),
     'base_mid_page': ([1541], 77, 8, 2, 128, 16, [2000], None, 'f16', True,
                       0),
+    # Head width 256 (two warps a 16-row slice, each its half of the
+    # output columns): rows that see nothing, a permuted f16 walk.
+    'd256_no_visible_column': ([0], 64, 8, 1, 256, 16, [512], None, 'bf16',
+                               False, 40),
+    'd256_permuted_f16': ([37], 100, 4, 4, 256, 16, [512], 60, 'f16', True,
+                          0),
 }
 
 
@@ -741,6 +778,14 @@ def test_flash_wrappers_raise_instead_of_falling_back(dev):
     q48, k48, v48, _ = _flash_case(dev, torch.bfloat16, 1, 4, 2, 64, 48)
     with pytest.raises(ValueError, match='head_dim'):
         fa.flash_fwd(q48, k48, v48, **kw)
+    q256, k256, v256, do256 = _flash_case(dev, torch.bfloat16, 1, 4, 2, 64,
+                                          256)
+    with pytest.raises(ValueError, match='Gemma training and the flash '
+                                         'kernels at head width 256'):
+        fa.flash_fwd(q256, k256, v256, **kw)
+    lse256 = torch.zeros(1, 4, 64, device=dev)
+    with pytest.raises(ValueError, match='head width 256'):
+        fa.flash_bwd_dq(q256, k256, v256, do256, lse256, lse256, **kw)
     with pytest.raises(ValueError, match='device'):
         fa.flash_fwd(q, k.cpu(), v, **kw)
     with pytest.raises(ValueError, match='contiguous'):

@@ -5,8 +5,8 @@ on the CPU, at f32.
      moe families builds the port's model (on the meta device: shapes,
      no storage), whose parameters add up to the reference's
      `num_params`; `num_params` and `active_params` equal the
-     reference's; gemma-* and deepseek-* raise and name what they wait
-     for.
+     reference's (the gemma family's too: tests/test_torch_gemma.py holds
+     its forwards); deepseek-* raises and names what it waits for.
   2. `train_forward` logits against the reference's `model.apply` on the
      same params (through `bridge.params_from_jax`): gpt2-tiny (MHA,
      learned positions, tied head), qwen-tiny (q/k/v biases, tied head),
@@ -42,6 +42,7 @@ import torch
 
 from skypilot_tpu import models as jmodels
 from skypilot_tpu.infer import engine as jeng
+from skypilot_tpu.models import gemma as jgemma
 from skypilot_tpu.models import gpt2 as jgpt2
 from skypilot_tpu.models import moe as jmoe
 from skypilot_tpu.models import qwen as jqwen
@@ -79,8 +80,8 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.mark.parametrize('family', [jgpt2, jqwen, jmoe],
-                         ids=['gpt2', 'qwen', 'moe'])
+@pytest.mark.parametrize('family', [jgpt2, jqwen, jmoe, jgemma],
+                         ids=['gpt2', 'qwen', 'moe', 'gemma'])
 def test_every_config_builds_with_the_reference_counts(family):
     for name in family.CONFIGS:
         jcfg = jmodels.get_model(name)[1]
@@ -92,11 +93,9 @@ def test_every_config_builds_with_the_reference_counts(family):
             jmodels.flops_per_token(jcfg, 100), name
         assert sum(p.numel() for p in model.parameters()) == \
             tmodels.num_params(cfg), name
-    for name in ('gemma-7b', 'deepseek-v3'):
-        with pytest.raises(ValueError, match='The other families'):
-            tmodels.get_model(name, device='cpu')
-    assert set(jgpt2.CONFIGS) | set(jqwen.CONFIGS) | set(jmoe.CONFIGS) \
-        <= set(tmodels.available_models())
+    with pytest.raises(ValueError, match='The other families'):
+        tmodels.get_model('deepseek-v3', device='cpu')
+    assert set(family.CONFIGS) <= set(tmodels.available_models())
 
 
 FORWARD_CASES = {

@@ -148,12 +148,12 @@ def _int8_pool(rng, shape, poison_null):
 
 
 def _decode_case(seed, b, h, kvh, n_read, ctxs, *, null_last=(),
-                 window=None):
+                 window=None, d=_D):
     rng = np.random.RandomState(seed)
     read_len = n_read * _PS
     n_pages = b * n_read + 3
-    pk, ks = _int8_pool(rng, (n_pages, kvh, _PS, _D), True)
-    pv, vs = _int8_pool(rng, (n_pages, kvh, _PS, _D), True)
+    pk, ks = _int8_pool(rng, (n_pages, kvh, _PS, d), True)
+    pv, vs = _int8_pool(rng, (n_pages, kvh, _PS, d), True)
     perm = rng.permutation(np.arange(1, n_pages))
     table = perm[:b * n_read].reshape(b, n_read).astype(np.int32)
     mask = np.zeros((b, 1, 1, read_len), bool)
@@ -163,28 +163,34 @@ def _decode_case(seed, b, h, kvh, n_read, ctxs, *, null_last=(),
         if i in null_last:
             table[i, -1] = 0
             mask[i, :, :, (n_read - 1) * _PS:] = False
-    q = rng.randn(b, h, 1, _D).astype(np.float32)
+    q = rng.randn(b, h, 1, d).astype(np.float32)
     return q, pk, pv, ks, vs, table, mask
 
 
-@pytest.mark.parametrize('h,kvh', [(4, 2), (4, 4), (4, 1)],
-                         ids=['gqa4:2', 'mha', 'gqa4:1'])
+# (query heads, KV heads, head dim): at _D, and gemma's head width 256 at
+# a group of 1 (gemma-7b's) and of 8 (gemma-2b's).
+_HEADS = [(4, 2, _D), (4, 4, _D), (4, 1, _D), (2, 2, 256), (8, 1, 256)]
+_HEAD_IDS = ['gqa4:2', 'mha', 'gqa4:1', 'g1_d256', 'g8_d256']
+
+
+@pytest.mark.parametrize('h,kvh,d', _HEADS, ids=_HEAD_IDS)
 @pytest.mark.parametrize('ctxs,null_last,window', [
     ([3, 21, 16], (0, 2), None),
     ([29, 13, 24], (), 6),
 ], ids=['null_pages', 'window'])
-def test_plain_int8_decode_matches_pallas(h, kvh, ctxs, null_last, window):
+def test_plain_int8_decode_matches_pallas(h, kvh, d, ctxs, null_last,
+                                          window):
     q, pk, pv, ks, vs, table, mask = _decode_case(
         h * 10 + kvh, 3, h, kvh, 4, ctxs, null_last=null_last,
-        window=window)
+        window=window, d=d)
     want = np.asarray(jpa.paged_decode_attention(
         jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
-        jnp.asarray(table), jnp.asarray(mask), scale=_D ** -0.5,
+        jnp.asarray(table), jnp.asarray(mask), scale=d ** -0.5,
         probs_dtype=jnp.float32, key_scale=jnp.asarray(ks),
         value_scale=jnp.asarray(vs), interpret=True))
     before = (tpa.launches, tpa.launches_int8)
     got = tpa.paged_decode_attention(
-        _t(q), _t(pk), _t(pv), _t(table), _t(mask), scale=_D ** -0.5,
+        _t(q), _t(pk), _t(pv), _t(table), _t(mask), scale=d ** -0.5,
         probs_dtype=torch.float32, key_scale=_t(ks), value_scale=_t(vs))
     assert (tpa.launches, tpa.launches_int8) == before
     assert np.isfinite(want).all()
@@ -192,42 +198,42 @@ def test_plain_int8_decode_matches_pallas(h, kvh, ctxs, null_last, window):
 
 
 # -- 3. ragged prefill -------------------------------------------------------
-def _prefill_case(seed, h, kvh, s, base, true_lens, *, L=64):
+def _prefill_case(seed, h, kvh, s, base, true_lens, *, L=64, d=_D):
     rng = np.random.RandomState(seed)
     b = len(base)
     base = np.asarray(base, np.int32)
     n_read = -(-(int(base.max()) + s) // _PS)
-    k, ks = _int8_pool(rng, (b, kvh, L, _D), False)
-    v, vs = _int8_pool(rng, (b, kvh, L, _D), False)
+    k, ks = _int8_pool(rng, (b, kvh, L, d), False)
+    v, vs = _int8_pool(rng, (b, kvh, L, d), False)
     kvm = np.zeros((b, L), bool)
     for i, n in enumerate(true_lens):
         kvm[i, :n] = True
     table = np.broadcast_to(np.arange(n_read, dtype=np.int32),
                             (b, n_read)).copy()
-    q = rng.randn(b, h, s, _D).astype(np.float32)
+    q = rng.randn(b, h, s, d).astype(np.float32)
     return q, k, v, ks, vs, table, base, kvm
 
 
-@pytest.mark.parametrize('h,kvh', [(4, 2), (4, 4), (4, 1)],
-                         ids=['gqa4:2', 'mha', 'gqa4:1'])
+@pytest.mark.parametrize('h,kvh,d', _HEADS, ids=_HEAD_IDS)
 @pytest.mark.parametrize('base,true_lens,window', [
     ([0, 16], [5, 21], None),
     ([13, 24], [17, 40], None),
     ([24, 9], [30, 14], 5),
 ], ids=['kv_mask_cuts_chunk', 'mid_page', 'window'])
-def test_plain_int8_prefill_matches_pallas(h, kvh, base, true_lens, window):
+def test_plain_int8_prefill_matches_pallas(h, kvh, d, base, true_lens,
+                                           window):
     q, k, v, ks, vs, table, base, kvm = _prefill_case(
-        h * 10 + kvh, h, kvh, 8, base, true_lens)
+        h * 10 + kvh, h, kvh, 8, base, true_lens, d=d)
     want = np.asarray(jrp.ragged_prefill_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table),
-        jnp.asarray(base), jnp.asarray(kvm), scale=_D ** -0.5,
+        jnp.asarray(base), jnp.asarray(kvm), scale=d ** -0.5,
         probs_dtype=jnp.float32, page_size=_PS, window=window,
         key_scale=jnp.asarray(ks), value_scale=jnp.asarray(vs),
         interpret=True))
     before = (trp.launches, trp.launches_int8)
     got = trp.ragged_prefill_attention(
         _t(q), _t(k), _t(v), _t(table), _t(base), _t(kvm),
-        scale=_D ** -0.5, probs_dtype=torch.float32, page_size=_PS,
+        scale=d ** -0.5, probs_dtype=torch.float32, page_size=_PS,
         window=window, key_scale=_t(ks), value_scale=_t(vs))
     assert (trp.launches, trp.launches_int8) == before
     assert np.isfinite(want).all()
