@@ -60,6 +60,13 @@ Phases, any failure exits non-zero:
                gemma-2b's (8 over 1, a group of 8); a 512-token chunk at
                base 1536 at both models' heads (GEMMA_DECODE,
                GEMMA_PREFILL).
+     Flash kernels 1-3 at head width 256 (`phase_flash_d256`): at
+               gemma-7b's heads (16 over 16) and gemma-2b's (8 over 1),
+               B 2 x S 4096, causal, checked within
+               `flash_attention.rounding_bounds` and timed with their
+               plain versions and SDPA (K/V repeated 8 times for G 8);
+               checked only: a 1024-token window, a ragged S 1000, an
+               offset of 700 (FLASH_D256_CASES, FLASH_D256_EDGES).
   4. serve   - start the port's InferenceServer on llama3-8b at full width
                and depth (random bf16 weights from a seed; page 16,
                prefill chunk 512, 8 slots, max_seq_len 4096; like every
@@ -232,6 +239,18 @@ Phases, any failure exits non-zero:
                prompts (kernel 4 at S 5, the draft's at S 1 over one KV
                head); gemma-2b alone (main path, decode tokens/s,
                `first_step_check`).
+     train_gemma - gemma-2b whole (18 layers, 8 heads over 1 at head_dim
+               256, vocab 256128, tied head) through the trainer's CLI,
+               batch 2 x 4096, --loss-chunk 1024, 5 steps, counts from 0:
+               flash kernels 1-3 at d 256, forward 2 L steps, dq and dk/dv
+               L steps, the serving kernels 0; then one step kernels vs
+               plain within FAMILY_TRAIN_LIMITS and FAMILY_MEMORIZE_STEPS
+               steps on one batch whose loss must fall (`train_family`).
+     finetune_gemma - the finetune phase on gemma-7b at all 28 layers
+               (GEMMA_FINETUNE): the LoRA recipe, 2 x 8192 in two
+               microbatches, 3 steps, each flash kernel once a layer and
+               microbatch, the base bit for bit unchanged, kernels vs
+               plain on 2 layers.
      The kernel phase's edge cases include these families' heads: G 1
      at d 64 and G 7 at d 128 in DECODE_EDGES (S 1 and 5),
      PREFILL_EDGES and FLASH_EDGES.
@@ -257,13 +276,17 @@ Phases, any failure exits non-zero:
                head-width-256 instantiations: launches in the gemma
                phases (the float branch's main path serve_gemma, the int8
                branch's serve_gemma_int8), gemma-7b's times and bound,
+               the worst error of their cases; three more,
+               `flash_fwd_d256`, `flash_bwd_dq_d256` and
+               `flash_bwd_dkv_d256`, hold flash kernels 1-3 at head width
+               256: launches in train_gemma (their main path) and
+               finetune_gemma, the times and bound at gemma-7b's heads,
                the worst error of their cases.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import gc
 import json
 import os
@@ -918,6 +941,23 @@ def phase_kernels_d256(dev) -> dict:
     return results
 
 
+# Flash kernels 1-3 at head width 256 (`phase_flash_d256`), checked and
+# timed at the train_gemma and finetune_gemma heads, B 2 x S 4096, causal:
+# gemma-7b's (16 over 16, the entries' numbers) and gemma-2b's (8 over 1:
+# the dk/dv group sum over 8 heads; SDPA gets K/V repeated 8 times).
+# Checked only: a 1024-token window, a ragged S 1000, queries at an offset
+# of 700 (name, B, H, kvh, S, d, window, offset).
+FLASH_D256_CASES = (
+    ('gemma_7b', 2, 16, 16, 4096, GEMMA_D, None),
+    ('gemma_2b_g8', 2, 8, 1, 4096, GEMMA_D, None),
+)
+FLASH_D256_EDGES = (
+    ('window_1024', 1, 16, 16, 4096, GEMMA_D, 1024, 0),
+    ('ragged_1000_g8', 1, 8, 1, 1000, GEMMA_D, None, 0),
+    ('offset_700_g8', 1, 8, 1, 1024, GEMMA_D, None, 700),
+)
+
+
 def phase_kernels(dev, quant=(False, True),
                   kernels=('paged_decode', 'ragged_prefill')) -> dict:
     """The serving kernels at llama3-8b shapes, float and int8 branches
@@ -973,10 +1013,11 @@ def _flash_work(b, h, kvh, s, d, window):
 
 
 def _flash_case(dev, seed, case, b, h, kvh, s, d, window, offset=0,
-                timed=True):
-    """Check one flash case; time it at the training shape (and only
-    the forward in the other FLASH_CASES, nothing in FLASH_EDGES).
-    Returns (max_abs_err, (ms, plain_ms), library_ms) per kernel name."""
+                timed=True, full=False):
+    """Check one flash case; time it: every kernel, its plain version and
+    SDPA when `full`, else only the forward; nothing when not `timed`
+    (the edge cases).  Returns
+    (max_abs_err, (ms, plain_ms), library_ms) per kernel name."""
     from skypilot_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(*shape, generator=g, device=dev, dtype=DTYPE)
@@ -1007,7 +1048,7 @@ def _flash_case(dev, seed, case, b, h, kvh, s, d, window, offset=0,
     fwd = lambda: fa.flash_fwd(q, k, v, **kw)
     if not timed:
         return errs, {}, {}
-    if case != 'train':
+    if not full:
         return errs, {'flash_fwd': (time_ms(fwd), None)}, {}
     plain_bwd = time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta,
                                                    **kw), iters=5, warmup=1)
@@ -1020,7 +1061,7 @@ def _flash_case(dev, seed, case, b, h, kvh, s, d, window, offset=0,
             q, k, v, do, lse, delta, **kw)), plain_bwd),
     }
     lib_f, lib_b = sdpa_times(q, k, v, do, kw['scale'])
-    log(f'flash train: sdpa forward {lib_f:.4f} ms, backward alone '
+    log(f'flash {case}: sdpa forward {lib_f:.4f} ms, backward alone '
         f'{lib_b:.4f} ms (autograd.grad over one saved forward); the '
         'plain backward computes dq, dk and dv together')
     return errs, times, dict(zip(FLASH_KERNELS, (lib_f, lib_b, lib_b)))
@@ -1043,11 +1084,17 @@ def sdpa_times(q, k, v, do, scale):
     return fwd, bwd
 
 
-def phase_flash_kernels(dev) -> dict:
+def phase_flash_kernels(dev, cases=FLASH_CASES, edges=FLASH_EDGES,
+                        full=('train',), suffix='', seed=10) -> dict:
+    """Flash kernels 1-3 on `cases` (checked and timed: every kernel, its
+    plain version and SDPA in the cases `full` names, else the forward
+    alone) and `edges` (checked): entries `<kernel><suffix>` whose times,
+    bound and library time are those of `full[0]` and whose max_abs_err
+    is the worst of every case."""
     results = {name: dict(cases=[]) for name in FLASH_KERNELS}
-    for ci, (case, b, h, kvh, s, d, window) in enumerate(FLASH_CASES):
-        errs, times, libs = _flash_case(dev, 10 + ci, case, b, h, kvh, s, d,
-                                        window)
+    for ci, (case, b, h, kvh, s, d, window) in enumerate(cases):
+        errs, times, libs = _flash_case(dev, seed + ci, case, b, h, kvh, s,
+                                        d, window, full=case in full)
         torch.cuda.empty_cache()
         work = _flash_work(b, h, kvh, s, d, window)
         for name in FLASH_KERNELS:
@@ -1056,26 +1103,36 @@ def phase_flash_kernels(dev) -> dict:
                          bound_by=by)
             if name in times:
                 entry['ms'], entry['plain_ms'] = times[name]
-                log(f'{name} {case}: kernel {entry["ms"]:.4f} ms, plain '
-                    f'{entry["plain_ms"]} ms, library '
+                log(f'{name}{suffix} {case}: kernel {entry["ms"]:.4f} ms, '
+                    f'plain {entry["plain_ms"]} ms, library '
                     f'{libs.get(name)} ms, bound {bms:.4f} ms ({by})')
             if name in libs:
                 entry['library_ms'] = libs[name]
             results[name]['cases'].append(entry)
-    for ci, (case, b, h, kvh, s, d, window, offset) in enumerate(
-            FLASH_EDGES):
-        errs = _flash_case(dev, 20 + ci, case, b, h, kvh, s, d, window,
-                           offset, timed=False)[0]
+    for ci, (case, b, h, kvh, s, d, window, offset) in enumerate(edges):
+        errs = _flash_case(dev, seed + 10 + ci, case, b, h, kvh, s, d,
+                           window, offset, timed=False)[0]
         torch.cuda.empty_cache()
         for name in FLASH_KERNELS:
             results[name]['cases'].append(dict(case=case,
                                                max_abs_err=errs[name]))
     for res in results.values():
-        main = next(c for c in res['cases'] if c['case'] == 'train')
+        main = next(c for c in res['cases'] if c['case'] == full[0])
         res.update(max_abs_err=max(c['max_abs_err'] for c in res['cases']),
                    ms=main['ms'], plain_ms=main['plain_ms'],
                    bound_ms=main['bound_ms'], bound_by=main['bound_by'],
                    library_ms=main['library_ms'])
+    return {name + suffix: res for name, res in results.items()}
+
+
+def phase_flash_d256(dev) -> dict:
+    """Flash kernels 1-3 at head width 256 (FLASH_D256_CASES, timed,
+    FLASH_D256_EDGES): entries `<kernel>_d256` with gemma-7b's numbers."""
+    results = phase_flash_kernels(
+        dev, FLASH_D256_CASES, FLASH_D256_EDGES,
+        full=tuple(c[0] for c in FLASH_D256_CASES), suffix='_d256', seed=30)
+    for res in results.values():
+        res['head_dim'] = GEMMA_D
     return results
 
 
@@ -2517,13 +2574,13 @@ CK_LENS = (40, 300, 900, 1500)
 CK_NEW = 16
 
 
-def _lora_train_config(n_layers=None, **kw):
+def _lora_train_config(n_layers=None, model='llama3-8b', **kw):
     from skypilot_tpu_torch.train import trainer as trainer_lib
     overrides = dict(FT_OVERRIDES, max_seq_len=kw['seq_len'])
     if n_layers is not None:
         overrides['n_layers'] = n_layers
     return trainer_lib.TrainConfig(
-        model='llama3-8b', train_only='lora', loss_chunk=FT_CHUNK,
+        model=model, train_only='lora', loss_chunk=FT_CHUNK,
         warmup_steps=2, total_steps=20, model_overrides=overrides, **kw)
 
 
@@ -2533,15 +2590,18 @@ def _adapter_grad_norm(model) -> float:
                                 if p.requires_grad)))
 
 
-def finetune_gaps(dev, model) -> tuple:
+def finetune_gaps(dev, model, name='llama3-8b',
+                  tag='finetune') -> tuple:
     """One step's loss and adapter grad norm with the kernels and with
     their plain versions, on the finetuned weights of the first
-    FT_CHECK_LAYERS layers of `model` and one 1 x FT_SEQ microbatch.
-    Returns (loss gap, grad-norm gap), relative (inf where not finite)."""
+    FT_CHECK_LAYERS layers of `model` (config `name`) and one 1 x FT_SEQ
+    microbatch.  Returns (loss gap, grad-norm gap), relative (inf where
+    not finite)."""
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import trainer as trainer_lib
     tr = trainer_lib.Trainer(_lora_train_config(
-        FT_CHECK_LAYERS, global_batch_size=1, seq_len=FT_SEQ), device=dev)
+        FT_CHECK_LAYERS, name, global_batch_size=1, seq_len=FT_SEQ),
+        device=dev)
     tr.init_state()
     keep = set(tr.model.state_dict())
     with torch.no_grad():
@@ -2560,7 +2620,7 @@ def finetune_gaps(dev, model) -> tuple:
     gap = (abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp))
     if not np.isfinite([lk, gk, *gap]).all():
         gap = (float('inf'), float('inf'))
-    log(f'finetune: one step at {FT_CHECK_LAYERS} layers (the finetuned '
+    log(f'{tag}: one step at {FT_CHECK_LAYERS} layers (the finetuned '
         f'weights), 1 x {FT_SEQ}, kernels vs plain versions: loss {lk:.6f} '
         f'vs {lp:.6f} (rel gap {gap[0]:.3e}, limit {TRAIN_LOSS_REL_TOL}); '
         f'adapter grad norm {gk:.6f} vs {gp:.6f} (rel gap {gap[1]:.3e}, '
@@ -2569,8 +2629,10 @@ def finetune_gaps(dev, model) -> tuple:
     return gap
 
 
-def phase_finetune(dev, card: str) -> dict:
-    """The LoRA recipe at full depth through `train/__main__.main`:
+def phase_finetune(dev, card: str, model: str = 'llama3-8b',
+                   tag: str = 'finetune') -> dict:
+    """The LoRA recipe at `model`'s full depth through
+    `train/__main__.main`:
     launches (every count set to 0 just before, read just after; kernel
     1 once a layer and microbatch under save_attn), the base bit for bit
     unchanged, every adapter b trained off zero, finite losses and grad
@@ -2582,7 +2644,7 @@ def phase_finetune(dev, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    argv = ['--model', 'llama3-8b', '--model-overrides',
+    argv = ['--model', model, '--model-overrides',
             json.dumps(FT_OVERRIDES), '--train-only', 'lora', '--loss-chunk',
             str(FT_CHUNK), '--global-batch-size', str(FT_BATCH),
             '--grad-accum-steps', str(FT_ACCUM), '--seq-len', str(FT_SEQ),
@@ -2619,7 +2681,7 @@ def phase_finetune(dev, card: str) -> dict:
     n_adapter = sum(p.numel() for p in adapters.values())
     base_bytes = sum(t.nbytes for t in seen['base'].values())
     peak = metrics['peak_memory_bytes']
-    log(f'finetune: llama3-8b, {L} layers, LoRA rank '
+    log(f'{tag}: {model}, {L} layers, LoRA rank '
         f'{tr.model_config.lora_rank} alpha {tr.model_config.lora_alpha} on '
         f'{tr.model_config.lora_targets}, train_only=lora, remat_policy='
         f"{tr.model_config.remat_policy}, loss_chunk {FT_CHUNK}, batch "
@@ -2628,38 +2690,38 @@ def phase_finetune(dev, card: str) -> dict:
         f'{n_adapter} adapter params, frozen base {base_bytes} bytes; '
         f'launches {launches}, expected {want}')
     if launches != want:
-        raise AssertionError(f'finetune launches {launches} != {want}')
+        raise AssertionError(f'{tag} launches {launches} != {want}')
     hist = metrics['history']
     if len(hist) != n or not all(
             np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])
             for r in hist):
-        raise AssertionError(f'finetune: missing or non-finite steps: {hist}')
+        raise AssertionError(f'{tag}: missing or non-finite steps: {hist}')
     for r in hist:
-        log(f'finetune step {r["step"]}: loss {r["loss"]:.4f} grad_norm '
+        log(f'{tag} step {r["step"]}: loss {r["loss"]:.4f} grad_norm '
             f'{r["grad_norm"]:.6f} step {r["step_ms"]:.1f} ms '
             f'{r["tokens_per_sec"]:.1f} tokens/s')
     steady = hist[1:]
     step_ms = sum(r['step_ms'] for r in steady) / len(steady)
     tps = FT_BATCH * FT_SEQ / step_ms * 1e3
-    log(f'finetune: steps 2-{n}: {step_ms:.1f} ms/step, {tps:.1f} tokens/s '
+    log(f'{tag}: steps 2-{n}: {step_ms:.1f} ms/step, {tps:.1f} tokens/s '
         f'({card}); peak memory allocated {peak} bytes '
         f'({peak / 2**30:.2f} GiB)')
     changed = [k for k, t in seen.pop('base').items()
                if not torch.equal(params[k].detach().cpu(), t)]
     untrained = [k for k, p in adapters.items()
                  if k.endswith('_lora.b') and not bool(p.detach().any())]
-    log(f'finetune: base parameters changed: {len(changed)} of '
+    log(f'{tag}: base parameters changed: {len(changed)} of '
         f'{len(params) - len(adapters)}; adapter b still all zero: '
         f'{len(untrained)} of {sum(k.endswith(".b") for k in adapters)}')
     if changed or untrained or not all(llama.is_lora(k) for k in adapters):
-        raise AssertionError(f'finetune: base changed {changed[:3]} or '
+        raise AssertionError(f'{tag}: base changed {changed[:3]} or '
                              f'adapters untrained {untrained[:3]}')
-    gap = finetune_gaps(dev, tr.model)
+    gap = finetune_gaps(dev, tr.model, model, tag)
     del tr, seen, params, adapters
     gc.collect()
     torch.cuda.empty_cache()
     if not (gap[0] <= TRAIN_LOSS_REL_TOL and gap[1] <= TRAIN_GNORM_REL_TOL):
-        raise AssertionError('finetune: kernels disagree with the plain '
+        raise AssertionError(f'{tag}: kernels disagree with the plain '
                              'versions')
     return dict(launches=launches, step_ms=step_ms, tokens_per_s=tps,
                 peak_bytes=peak, gaps=gap)
@@ -2873,11 +2935,24 @@ FAMILY_MEMORIZE_STEPS = 4
 # batch 8 x 1024) read a grad-norm gap of 7.79e-5 on two H100 runs (loss
 # 7.90e-6), over the llama3-8b-derived 5e-5, while its kernels held their
 # rounding bounds at its heads (FLASH_EDGES gpt2_g1_d64); its limits are
-# set as the train phase's were, about 10x the reading.  A family named
+# set as the train phase's were, about 10x the reading.  gemma-2b whole
+# (train_gemma: 18 layers, 8 heads over 1 at d 256, the tied head over
+# vocab 256128 whose gradient sums the lookup's and the head's) read a
+# grad-norm gap of 5.07e-5 (loss 1.34e-5) on an H100, over 5e-5 again,
+# while its kernels held their bounds at its heads (FLASH_D256_CASES
+# gemma_2b_g8); its limits are about 10x the reading too.  A family named
 # here also runs the checked step at f32 compute (the plain versions, the
-# same weights and batch): a reading of how far the kernels' run and the
-# plain bf16 run each are from it.
-FAMILY_TRAIN_LIMITS = {'gpt2': (1e-4, 8e-4)}
+# same weights and batch, a model without optimizer state): a reading of
+# how far the kernels' run and the plain bf16 run each are from it.
+FAMILY_TRAIN_LIMITS = {'gpt2': (1e-4, 8e-4), 'gemma-2b': (1e-4, 5e-4)}
+# train_gemma: gemma-2b whole (18 layers, dim 2048, 8 heads over 1 at
+# head_dim 256, ffn 16384, vocab 256128: 2.51 B parameters, 40 GB of f32
+# params, grads and AdamW moments), batch 2 x seq 4096, the loss over
+# 1024-position chunks of the tied f32 head: (model, batch, seq, chunk).
+GEMMA_TRAIN = ('gemma-2b', 2, 4096, 1024)
+# finetune_gemma: the finetune phase's LoRA recipe on gemma-7b at all 28
+# layers (8.54 B parameters: a 34 GB f32 base).
+GEMMA_FINETUNE = 'gemma-7b'
 
 
 def _family_server(dev, model: str, max_seq_len: int, overrides=None,
@@ -3227,18 +3302,21 @@ def phase_serve_gemma(dev) -> dict:
 
 
 def family_gaps_and_memorize(dev, model: str, overrides: dict, batch: int,
-                             seq: int) -> dict:
+                             seq: int, loss_chunk: int = 0,
+                             tag: str = 'train_families') -> dict:
     """One step's loss and global grad norm with the kernels and with their
     plain versions at one batch and the same weights, within
     FAMILY_TRAIN_LIMITS; a MoE model's plain run is routed as the kernels'
     run was (`moe_routes`), and its free run's gaps are printed beside.
     Then FAMILY_MEMORIZE_STEPS steps on that batch (warmup 2): the loss
     must fall.  Returns the gaps."""
+    from skypilot_tpu_torch import models as models_lib
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import trainer as trainer_lib
     config = trainer_lib.TrainConfig(
         model=model, global_batch_size=batch, seq_len=seq, warmup_steps=2,
-        total_steps=20, model_overrides=dict(overrides, max_seq_len=seq))
+        total_steps=20, model_overrides=dict(overrides, max_seq_len=seq),
+        loss_chunk=loss_chunk)
     tr = trainer_lib.Trainer(config, device=dev)
     tr.init_state()
     data = next(data_lib.synthetic_data(batch, seq,
@@ -3246,12 +3324,12 @@ def family_gaps_and_memorize(dev, model: str, overrides: dict, batch: int,
                                         device=dev))
     moe = hasattr(tr.model.layers[0], 'moe_mlp')
 
-    def step(kernel, trainer=tr, **routes):
-        model = trainer.model
+    def step(kernel, model=tr.model, **routes):
         ctx = (moe_routes(model, **routes) if moe
                else contextlib.nullcontext())
         with ctx:
-            m = trainer_lib.compute_grads(model, data, kernel=kernel)
+            m = trainer_lib.compute_grads(model, data, kernel=kernel,
+                                          loss_chunk=loss_chunk)
         gn = trainer_lib.global_norm({k: p.grad for k, p in
                                       model.named_parameters()})
         model.zero_grad(set_to_none=True)
@@ -3265,18 +3343,18 @@ def family_gaps_and_memorize(dev, model: str, overrides: dict, batch: int,
     plain = step('xla', record={}, force=routes) if moe else step('xla')
     gaps = rel(fused, plain)
     if model in FAMILY_TRAIN_LIMITS:
-        f32 = trainer_lib.Trainer(dataclasses.replace(
-            config, model_overrides=dict(config.model_overrides,
-                                         dtype='float32')), device=dev)
-        f32.init_state({k: v.detach() for k, v in
-                        tr.model.state_dict().items()})
-        ref = step('xla', trainer=f32)
-        log(f'train_families[{model}]: against the same step at f32 '
+        f32 = models_lib.build(models_lib.get_config(
+            model, **dict(config.model_overrides, dtype='float32')), dev)
+        f32.load_state_dict(tr.model.state_dict())
+        f32.requires_grad_(True)
+        ref = step('xla', model=f32)
+        log(f'{tag}[{model}]: against the same step at f32 '
             f'(plain versions): the kernels\' run rel gaps '
             f'{rel(fused, ref)[0]:.3e} (loss) and {rel(fused, ref)[1]:.3e} '
             f'(grad norm); the plain bf16 run {rel(plain, ref)[0]:.3e} and '
             f'{rel(plain, ref)[1]:.3e}')
         del f32
+        _free()
     loss_tol, norm_tol = FAMILY_TRAIN_LIMITS.get(
         model, (TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL))
     free = ''
@@ -3286,83 +3364,102 @@ def family_gaps_and_memorize(dev, model: str, overrides: dict, batch: int,
         free = (f'; the free plain run ({sum(_route_flips(routes, free_routes))}'
                 f' of {sum(r.numel() for r in routes.values())} routes '
                 f'differ): rel gaps {free_gaps[0]:.3e} and {free_gaps[1]:.3e}')
-    log(f'train_families[{model}]: one step, kernels vs plain: loss '
+    log(f'{tag}[{model}]: one step, kernels vs plain: loss '
         f'{fused[0]:.6f} vs {plain[0]:.6f} (rel gap {gaps[0]:.3e}, limit '
         f'{loss_tol}); aux_loss {fused[1]:.6f} vs {plain[1]:.6f}; grad norm '
         f'{fused[2]:.6f} vs {plain[2]:.6f} (rel gap {gaps[1]:.3e}, limit '
         f'{norm_tol}){free}')
     if not (np.isfinite([*fused, *gaps]).all() and gaps[0] <= loss_tol
             and gaps[1] <= norm_tol):
-        raise AssertionError(f'train_families[{model}]: kernels disagree '
+        raise AssertionError(f'{tag}[{model}]: kernels disagree '
                              'with the plain versions')
     losses = [float(tr.step(data)['loss'])
               for _ in range(FAMILY_MEMORIZE_STEPS)]
-    log(f'train_families[{model}]: {FAMILY_MEMORIZE_STEPS} steps on one '
+    log(f'{tag}[{model}]: {FAMILY_MEMORIZE_STEPS} steps on one '
         f'repeated batch: losses {[round(x, 4) for x in losses]}')
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f'train_families[{model}]: loss did not fall '
+        raise AssertionError(f'{tag}[{model}]: loss did not fall '
                              'on a repeated batch')
     del tr, data
     _free()
     return dict(loss_gap=gaps[0], grad_norm_gap=gaps[1])
 
 
-def phase_train_families(dev) -> dict:
-    """TRAIN_FAMILIES through `python -m skypilot_tpu_torch.train` (its
-    `main`), 5 steps each, every count set to 0 just before and read just
+def train_family(dev, model: str, overrides: dict, batch: int, seq: int,
+                 loss_chunk: int = 0, tag: str = 'train_families') -> dict:
+    """`model` through `python -m skypilot_tpu_torch.train` (its `main`),
+    TRAIN_STEPS steps, every count set to 0 just before and read just
     after: flash forward 2 L steps (remat reruns it), dq and dk/dv L steps
     each, the serving kernels 0; every loss, aux_loss and grad_norm
-    finite.  Then `family_gaps_and_memorize`.  Returns the launches by
-    family."""
+    finite.  Then `family_gaps_and_memorize`.  Returns the launches, the
+    mean ms and tokens/s of steps 2 on, the peak memory and the gaps."""
     from skypilot_tpu_torch import models as models_lib
     from skypilot_tpu_torch.train import __main__ as train_main
-    out = {}
-    for model, overrides, batch, seq in TRAIN_FAMILIES:
-        _free()
-        torch.cuda.reset_peak_memory_stats()
-        argv = ['--model', model, '--model-overrides', json.dumps(overrides),
-                '--global-batch-size', str(batch), '--seq-len', str(seq),
-                '--steps', str(TRAIN_STEPS), '--log-every', '1',
-                '--device', str(dev)]
-        _reset_launch_counts()
-        t0 = time.perf_counter()
-        metrics = train_main.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _launch_counts()
-        L = models_lib.get_config(model, **overrides).n_layers
-        n = TRAIN_STEPS
-        want = {'paged_decode': 0, 'ragged_prefill': 0,
-                'paged_decode_int8': 0, 'ragged_prefill_int8': 0,
-                'flash_fwd': 2 * L * n, 'flash_bwd_dq': L * n,
-                'flash_bwd_dkv': L * n}
-        hist = metrics['history']
-        log(f'train_families[{model}]: {L} layers, batch {batch} x seq {seq}, '
-            f'{n} steps in {wall:.1f}s (model init included), '
-            f'{metrics["n_params"]} parameters; launches {launches}, '
-            f'expected {want}; peak memory allocated '
-            f'{metrics["peak_memory_bytes"] / 2**30:.2f} GiB')
-        for r in hist:
-            log(f'train_families[{model}] step {r["step"]}: loss '
-                f'{r["loss"]:.4f} aux_loss {r["aux_loss"]:.6f} grad_norm '
-                f'{r["grad_norm"]:.4f} step {r["step_ms"]:.1f} ms '
-                f'{r["tokens_per_sec"]:.1f} tokens/s')
-        if launches != want:
-            raise AssertionError(f'train_families[{model}] launches '
-                                 f'{launches} != {want}')
-        if len(hist) != n or not all(
-                np.isfinite([r['loss'], r['aux_loss'], r['grad_norm']]).all()
-                for r in hist):
-            raise AssertionError(f'train_families[{model}]: missing or '
-                                 f'non-finite steps: {hist}')
-        if model.startswith('mixtral') and not all(r['aux_loss'] > 0
-                                                   for r in hist):
-            raise AssertionError('train_families: no router aux loss')
-        del metrics
-        _free()
-        family_gaps_and_memorize(dev, model, overrides, batch, seq)
-        out[model] = launches
-    return out
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ['--model', model, '--model-overrides', json.dumps(overrides),
+            '--global-batch-size', str(batch), '--seq-len', str(seq),
+            '--loss-chunk', str(loss_chunk), '--steps', str(TRAIN_STEPS),
+            '--log-every', '1', '--device', str(dev)]
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = train_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    L = models_lib.get_config(model, **overrides).n_layers
+    n = TRAIN_STEPS
+    want = {'paged_decode': 0, 'ragged_prefill': 0,
+            'paged_decode_int8': 0, 'ragged_prefill_int8': 0,
+            'flash_fwd': 2 * L * n, 'flash_bwd_dq': L * n,
+            'flash_bwd_dkv': L * n}
+    hist = metrics['history']
+    peak = metrics['peak_memory_bytes']
+    log(f'{tag}[{model}]: {L} layers, batch {batch} x seq {seq}, loss_chunk '
+        f'{loss_chunk}, {n} steps in {wall:.1f}s (model init included), '
+        f'{metrics["n_params"]} parameters; launches {launches}, '
+        f'expected {want}; peak memory allocated {peak} bytes '
+        f'({peak / 2**30:.2f} GiB)')
+    for r in hist:
+        log(f'{tag}[{model}] step {r["step"]}: loss '
+            f'{r["loss"]:.4f} aux_loss {r["aux_loss"]:.6f} grad_norm '
+            f'{r["grad_norm"]:.4f} step {r["step_ms"]:.1f} ms '
+            f'{r["tokens_per_sec"]:.1f} tokens/s')
+    if launches != want:
+        raise AssertionError(f'{tag}[{model}] launches {launches} != {want}')
+    if len(hist) != n or not all(
+            np.isfinite([r['loss'], r['aux_loss'], r['grad_norm']]).all()
+            for r in hist):
+        raise AssertionError(f'{tag}[{model}]: missing or non-finite steps: '
+                             f'{hist}')
+    if model.startswith('mixtral') and not all(r['aux_loss'] > 0
+                                               for r in hist):
+        raise AssertionError(f'{tag}: no router aux loss')
+    step_ms = sum(r['step_ms'] for r in hist[1:]) / (n - 1)
+    tps = batch * seq / step_ms * 1e3
+    log(f'{tag}[{model}]: steps 2-{n}: {step_ms:.1f} ms/step, {tps:.1f} '
+        'tokens/s')
+    del metrics
+    _free()
+    gaps = family_gaps_and_memorize(dev, model, overrides, batch, seq,
+                                    loss_chunk, tag)
+    return dict(launches=launches, step_ms=step_ms, tokens_per_s=tps,
+                peak_bytes=peak, gaps=gaps)
+
+
+def phase_train_families(dev) -> dict:
+    """TRAIN_FAMILIES, each through `train_family`.  Returns the launches
+    by family."""
+    return {model: train_family(dev, model, overrides, batch, seq)[
+        'launches'] for model, overrides, batch, seq in TRAIN_FAMILIES}
+
+
+def phase_train_gemma(dev) -> dict:
+    """gemma-2b whole (GEMMA_TRAIN) through `train_family`: flash kernels
+    1-3 at head width 256 on the trainer's main path."""
+    model, batch, seq, chunk = GEMMA_TRAIN
+    return train_family(dev, model, {}, batch, seq, loss_chunk=chunk,
+                        tag='train_gemma')
 
 
 def main() -> int:
@@ -3378,6 +3475,7 @@ def main() -> int:
     kernels = phase_kernels(dev)
     kernels.update(phase_flash_kernels(dev))
     kernels.update(phase_kernels_d256(dev))
+    kernels.update(phase_flash_d256(dev))
     lap('kernel')
     bf16 = phase_serve(dev)
     launches = dict(bf16['launches'])
@@ -3432,6 +3530,13 @@ def main() -> int:
     for model, counts in phase_train_families(dev).items():
         by_phase[f'train_families:{model}'] = counts
     lap('train_families')
+    # Kept apart from by_phase too: these launch only the head-width-256
+    # flash instantiations, listed under their own entries.
+    flash_d256_by_phase = {'train_gemma': phase_train_gemma(dev)['launches']}
+    lap('train_gemma')
+    flash_d256_by_phase['finetune_gemma'] = phase_finetune(
+        dev, card, model=GEMMA_FINETUNE, tag='finetune_gemma')['launches']
+    lap('finetune_gemma')
     entries = []
     for name, src, replaces in (
             ('paged_decode', 'paged_decode',
@@ -3484,6 +3589,16 @@ def main() -> int:
                 'int8' if quant else 'float']}}
                if name.startswith('paged_decode') else {}),
             **({'branch': 'quant'} if quant else {}),
+            **kernels[f'{name}_d256']))
+    # Flash kernels 1-3 at head width 256: their main path is train_gemma.
+    for entry in entries[4:7]:
+        name = entry['name']
+        entries.append(dict(
+            name=f'{name}_d256', route='cuda', source=entry['source'],
+            replaces=entry['replaces'],
+            launches=flash_d256_by_phase['train_gemma'][name],
+            launches_by_phase={p: c[name] for p, c in
+                               flash_d256_by_phase.items()},
             **kernels[f'{name}_d256']))
     log(f'card: {card}')
     log(json.dumps({'kernels': entries}))

@@ -7,14 +7,17 @@ For each fault below (or each one named), copies the port
 (skypilot_tpu_torch/ and chip_smoke.py) into
 skypilot_tpu_torch/_build/faults/<name>/ (git-ignored), changes one
 line of a kernel source there, and runs in that copy, in a fresh
-process, chip_smoke.py's device, build and flash-kernel phases,
+process, chip_smoke.py's device, build and flash-kernel phases (head
+width 256 included),
 then its train phase's kernels-vs-plain step (`train_gaps`: one step's
 loss and grad norm with the kernels and with the plain versions, on two
 batches).  The unchanged copy runs first as the control and must pass
 the kernel check; every fault must fail it.  Prints one JSON line per
 run (the fault, whether the kernel check failed and the check line that
 failed it, the train step's gaps and whether they break chip_smoke.py's
-limits, and the run's seconds; a fault that ends in a CUDA error fails
+limits, then train_gemma's check (the kernels-vs-plain step of gemma-2b
+whole within its limits) and the line that reports its gaps, and the
+run's seconds; a fault that ends in a CUDA error fails
 the check, and its run reports the error instead of the gaps; a run
 that hangs past RUN_TIMEOUT_S is stopped and fails it too) and exits 0
 only when the control passes and every fault fails the kernel check.
@@ -32,14 +35,15 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, 'skypilot_tpu_torch', '_build', 'faults')
-# A sound run takes about 30 s on an H100.
-RUN_TIMEOUT_S = 150
+# A sound run takes about 67 s on an H100 (the head-width-256 cases and
+# gemma-2b's step included).
+RUN_TIMEOUT_S = 210
 
 # (name, source file under csrc/, the text as it is, the text planted)
 FAULTS = (
     ('causal_tile_bound_one_short', 'flash_fwd.cu',
-     'const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBN;',
-     'const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBN - 1;'),
+     'const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / BN;',
+     'const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / BN - 1;'),
     ('dkv_misses_a_group_member', 'flash_bwd.cu',
      'const int n_items = G * nq;',
      'const int n_items = (G - 1) * nq;'),
@@ -54,7 +58,7 @@ FAULTS = (
     # the producer, a phase behind, waits for ever: the run hangs), lse
     # in natural-log units, the dk/dv item stream and its cp.async ring.
     ('fwd_diagonal_tile_unmasked', 'flash_fwd.cu',
-     '(causal && (k0 + kBN - 1 > wpos_lo ||',
+     '(causal && (k0 + BN - 1 > wpos_lo ||',
      '(causal && (k0 > wpos_hi ||'),
     ('fwd_phase_bit_not_flipped', 'flash_fwd.cu',
      'const uint32_t ph = (n / kStages) & 1;',
@@ -78,8 +82,14 @@ FAULTS = (
      'const uint32_t ph = (n / kDqStages) & 1;',
      'const uint32_t ph = 0;'),
     ('dq_boundary_tile_unmasked', 'flash_bwd.cu',
-     '(causal && (k0 + kDqBN - 1 > wpos_lo ||',
+     '(causal && (k0 + BN - 1 > wpos_lo ||',
      '(causal && (k0 > wpos_hi ||'),
+    # Head width 256: the second warp of each pair on 16 kv rows writes
+    # the first half of dk's and dv's columns again, and the second half
+    # is never written.
+    ('dkv_d256_column_half_dropped', 'flash_bwd.cu',
+     'const int c_lo = C::kSplit == 1 ? 0 : (warp / 4) * C::kDO;',
+     'const int c_lo = 0;'),
 )
 
 _RUN = ('import json, gc, torch, chip_smoke as c\n'
@@ -90,6 +100,7 @@ _RUN = ('import json, gc, torch, chip_smoke as c\n'
         'gaps, crashed = None, None\n'
         'try:\n'
         '    c.phase_flash_kernels(dev)\n'
+        '    c.phase_flash_d256(dev)\n'
         '    failed = False\n'
         'except AssertionError:\n'
         '    failed = True\n'
@@ -98,13 +109,24 @@ _RUN = ('import json, gc, torch, chip_smoke as c\n'
         'if crashed is None:\n'
         '    gc.collect(); torch.cuda.empty_cache()\n'
         '    gaps = c.train_gaps(dev)[2]\n'
+        'gemma_failed = None\n'
+        'if crashed is None:\n'
+        '    gc.collect(); torch.cuda.empty_cache()\n'
+        '    model, batch, seq, chunk = c.GEMMA_TRAIN\n'
+        '    try:\n'
+        '        c.family_gaps_and_memorize(dev, model, {}, batch, seq,\n'
+        '                                   chunk, "train_gemma")\n'
+        '        gemma_failed = False\n'
+        '    except AssertionError:\n'
+        '        gemma_failed = True\n'
         'print("FAULT_RESULT " + json.dumps({\n'
         '    "kernel_check_failed": failed, "crashed": crashed,\n'
         '    "train_gaps": gaps,\n'
         '    "train_check_failed": None if gaps is None else any(\n'
         '        not (lg <= c.TRAIN_LOSS_REL_TOL\n'
         '             and ng <= c.TRAIN_GNORM_REL_TOL)\n'
-        '        for lg, ng in gaps)}))\n')
+        '        for lg, ng in gaps),\n'
+        '    "train_gemma_check_failed": gemma_failed}))\n')
 
 
 _WORST = re.compile(r'worst element at (\S+) of its bound')
@@ -153,7 +175,10 @@ def _check(name: str, tree: str) -> bool:
     failed = result['kernel_check_failed']
     failed_at = next((ln for ln in lines if (m := _WORST.search(ln))
                       and float(m.group(1)) > 1.0), None)
+    gemma_at = next((ln for ln in lines if ln.startswith(
+        'train_gemma[') and 'kernels vs plain' in ln), None)
     print(json.dumps({'fault': name, **result, 'at': failed_at,
+                      'train_gemma_at': gemma_at,
                       'seconds': round(time.perf_counter() - t0, 1)}),
           flush=True)
     return failed

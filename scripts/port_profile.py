@@ -30,7 +30,11 @@ weights from a seed; page 16, prefill chunk 512, 8 slots, max_seq_len
             loss (loss_chunk 1024, the recipe's settings);
             finetune_full - chip_smoke.py's finetune phase: all 32
             layers, batch 2 x seq 8192 in two microbatches, the recipe's
-            settings.
+            settings;
+  train_gemma, finetune_gemma - chip_smoke.py's gemma phases: gemma-2b
+            whole, batch 2 x seq 4096, the loss in 1024-position chunks;
+            gemma-7b whole (28 layers) under the finetune recipe, batch
+            2 x seq 8192 in two microbatches.
 
 For each window it prints one JSON line: host wall time per step (host
 clock around work that ends in a device synchronize), device busy time
@@ -43,8 +47,8 @@ head's products run in f32), and the kernels that took the most device
 time.  With --trace-dir it also
 writes each window's Chrome trace there; --windows picks some of serve
 (prefill, the three decode modes), serve_int8 (their int8-cache twins),
-serve_wint8 (their int8-weight twins), train and finetune (default:
-all five).
+serve_wint8 (their int8-weight twins), train, finetune and gemma
+(default: all six).
 Needs one NVIDIA card.
 """
 from __future__ import annotations
@@ -148,13 +152,18 @@ def _serve_windows(window, tag, kv_cache_dtype, quantize=None):
         eng.run_until_idle()
 
 
-def _train_window(window, name='train', n_layers=4, seq=4096, **kw):
+def _train_window(window, name='train', n_layers=4, seq=4096,
+                  model='llama3-8b', **kw):
+    """Two steps of a Trainer (batch 2 x `seq`) after one unprofiled step;
+    `n_layers` None keeps the config's depth."""
     from skypilot_tpu_torch.train import data as data_lib
     from skypilot_tpu_torch.train import trainer as trainer_lib
-    overrides = {'n_layers': n_layers, 'max_seq_len': seq}
+    overrides = {'max_seq_len': seq}
+    if n_layers is not None:
+        overrides['n_layers'] = n_layers
     overrides.update(kw.pop('model_overrides', {}))
     config = trainer_lib.TrainConfig(
-        model='llama3-8b', global_batch_size=2, seq_len=seq,
+        model=model, global_batch_size=2, seq_len=seq,
         model_overrides=overrides, **kw)
     tr = trainer_lib.Trainer(config, device='cuda')
     tr.init_state()
@@ -179,13 +188,13 @@ def main() -> int:
     parser.add_argument('--trace-dir', default=None)
     parser.add_argument('--windows',
                         default='serve,serve_int8,serve_wint8,train,'
-                                'finetune',
+                                'finetune,gemma',
                         help='comma-separated: serve, serve_int8, '
-                             'serve_wint8, train, finetune')
+                             'serve_wint8, train, finetune, gemma')
     args = parser.parse_args()
     picked = set(args.windows.split(','))
     if not picked <= {'serve', 'serve_int8', 'serve_wint8', 'train',
-                      'finetune'}:
+                      'finetune', 'gemma'}:
         raise SystemExit(f'port_profile: unknown windows {args.windows}')
     if not torch.cuda.is_available():
         raise SystemExit('port_profile: needs an NVIDIA card')
@@ -228,6 +237,16 @@ def main() -> int:
         _train_window(window, 'finetune', loss_chunk=1024, **lora)
         _train_window(window, 'finetune_full', n_layers=32, seq=8192,
                       grad_accum_steps=2, loss_chunk=1024, **lora)
+    if 'gemma' in picked:
+        model, _, seq, chunk = chip_smoke.GEMMA_TRAIN
+        _train_window(window, 'train_gemma', n_layers=None, seq=seq,
+                      model=model, loss_chunk=chunk)
+        _train_window(window, 'finetune_gemma', n_layers=None,
+                      seq=chip_smoke.FT_SEQ,
+                      model=chip_smoke.GEMMA_FINETUNE,
+                      grad_accum_steps=chip_smoke.FT_ACCUM,
+                      loss_chunk=chip_smoke.FT_CHUNK, train_only='lora',
+                      model_overrides=dict(chip_smoke.FT_OVERRIDES))
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -32,7 +32,7 @@
 //          Q and dO once, as 3-d TMA boxes with the 128-byte swizzle,
 //          then 64-column K and V tiles through a two-stage mbarrier ring
 //          (a full barrier for K and one for V a stage, an empty barrier
-//          the 256 consumer threads arrive on).  Two consumer warpgroups
+//          the 256 consumer threads arrive on; 32-column tiles at d 256).  Two consumer warpgroups
 //          (240 registers) own 64 query rows each, with lse (times
 //          log2 e) and delta in registers.  A tile: S = Q K^T and
 //          dP = dO V^T by wgmma m64n64k16 with both operands in shared
@@ -40,14 +40,22 @@
 //          dS = P (dP - delta) scale in registers; dq += dS K by wgmma
 //          with dS, rounded to the input type, as the register A operand
 //          and K read MN-major (the transpose bit) from the same tile.
-//          The f32 dq accumulator (64 registers a thread at d 128) stays
-//          in registers for the whole kv loop.  Tiles are those the
+//          The f32 dq accumulator (64 registers a thread at d 128, 128 at
+//          d 256) stays in registers for the whole kv loop.  Tiles are those the
 //          causal/window predicate lets through (the Pallas `should_run`
 //          as loop bounds); a consumer skips the products of a tile none
 //          of its 64 rows sees and masks only tiles that cross the
 //          diagonal, the window's first column or Skv.  The producer
 //          waits for its last copies before it exits.  d 128: 129 KB of
-//          shared memory, one block an SM.
+//          shared memory, one block an SM.  d 256: Q and dO take 128 KB,
+//          and a ring of 64-column K and V stages would take 128 KB more
+//          (256 KB: over the card's 227).  Of the two ways down, 32-column
+//          kv tiles (a 64 KB ring, 193 KB in all; S and dP by m64n32k16,
+//          dq += dS K by m64n256k16) keep two consumer warpgroups on each
+//          K/V tile, where one consumer of 64 rows would halve the tensor
+//          work each loaded tile feeds and leave 4 warps an SM to hide
+//          the latency; the f32 registers a thread (dq 128, S and dP 16
+//          each, dS 8) fit the consumers' 240.
 //   dk/dv: one block per (64-row kv tile, batch * kv head).  The group
 //          sum happens in the block's registers: deterministic, no
 //          atomics, as the TPU kernel's revisited output block was.  Each
@@ -69,10 +77,20 @@
 //          runs only for a warp whose 16 rows the item's tile crosses on
 //          the diagonal or the window's last row, and for the ragged
 //          last q tile.  d 128: 103 KB of shared memory, two blocks an
-//          SM.
+//          SM.  d 256: f32 dk and dv for 16 rows would be 256 registers a
+//          thread, so two warps share each 16 kv rows (8 warps a block),
+//          each holding its half of dk's and dv's columns (128 registers)
+//          and both computing S^T and dP^T over the full depth (1.5x the
+//          tensor work of the four products); 199 KB of shared memory
+//          (LD 264), one block an SM.  The other routes: 32-row kv tiles
+//          (the same registers a warp, half the rows a block load Q and
+//          dO for), or dk and dv in separate passes (S^T recomputed in
+//          each, dP^T only in one: 1.25x, but Q, dO, lse and delta
+//          streamed twice).  The pair keeps one stream and one launch.
 // ptxas (-Xptxas -v, CUDA 12.8, sm_90a), bf16 and f16 alike, no spills:
-// dk/dv 244 registers a thread at d 128 and 195 at d 64; dq 168 at
-// launch (setmaxnreg: the producer 24, the consumers 240).
+// dk/dv 249 registers a thread at d 256, 244 at d 128 and 195 at d 64;
+// dq 168 at launch at every d (setmaxnreg: the producer 24, the
+// consumers 240).
 // Still to come for speed: wgmma for the dk/dv pass; for dq, the next
 // tile's S and dP products issued before this tile's dq product ends.
 #include "attn_fwd_mainloop.cuh"  // cp.async, ldmatrix.x4 B fragments
@@ -83,12 +101,27 @@ namespace {
 using namespace flash;
 
 constexpr int kDqBM = 128;      // dq: query rows per block (two consumers)
-constexpr int kDqBN = 64;       // dq: kv columns per tile
 constexpr int kDqStages = 2;    // dq: K/V ring depth
+// dq: kv columns per tile, 64, and 32 at d 256 (Q and dO take 128 KB
+// there; two stages of 64-column K and V would add 128 KB more).
+template <int D>
+constexpr int kDqBN = D == 256 ? 32 : 64;
 constexpr int kDqThreads = 384;  // dq: a producer and two consumer warpgroups
 constexpr int kBK = 64;   // dk/dv: kv rows per block
 constexpr int kBQ2 = 64;  // dk/dv: query rows per tile of the stream
 constexpr float kLog2e = 1.4426950408889634f;
+
+// dk/dv: kSplit warps on each 16 kv rows, each holding kDO of the d
+// columns of dk and dv (d 256: two, each half, as 2 x 16 x 256 f32 a warp
+// would be 256 registers a thread); one block an SM at d 256 (199 KB of
+// shared memory), two below.
+template <int D>
+struct DkvCfg {
+  static constexpr int kSplit = D == 256 ? 2 : 1;
+  static constexpr int kThreads = flash::kThreads * kSplit;
+  static constexpr int kDO = D / kSplit;
+  static constexpr int kMinBlocks = D == 256 ? 1 : 2;
+};
 
 // K and V, then a two-stage ring of (Q, dO) tiles, then lse and delta
 // for each stage.
@@ -107,7 +140,7 @@ template <int D>
 struct DqSmem {
   static constexpr uint32_t kRegions = D / 64;          // 64-column regions
   static constexpr uint32_t kQRegion = kDqBM * 128;     // bytes, Q or dO
-  static constexpr uint32_t kKVRegion = kDqBN * 128;    // K or V
+  static constexpr uint32_t kKVRegion = kDqBN<D> * 128;  // K or V
   static constexpr uint32_t kQBytes = kRegions * kQRegion;
   static constexpr uint32_t kTileBytes = kRegions * kKVRegion;
   static constexpr uint32_t kBars = 2 * kQBytes + kDqStages * 2 * kTileBytes;
@@ -128,6 +161,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                         int Skv, int causal, int window, int offset,
                         float scale) {
   using L = DqSmem<D>;
+  constexpr int BN = kDqBN<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;
@@ -153,8 +187,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     k_hi = min(k_hi, q_last + offset);
     if (window > 0) k_lo = max(0, q0 + offset - window + 1);
   }
-  const int j_lo = k_lo / kDqBN;
-  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kDqBN;
+  const int j_lo = k_lo / BN;
+  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / BN;
   const int n_tiles = j_hi - j_lo + 1;
 
   if (threadIdx.x == 0) {
@@ -183,7 +217,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       for (int n = 0; n < n_tiles; ++n) {
         const int s = n % kDqStages;
         hopper::mbar_wait(empty(s), ((n / kDqStages) & 1) ^ 1);
-        const int k0 = (j_hi - n) * kDqBN;
+        const int k0 = (j_hi - n) * BN;
         const uint32_t sK = sKV + s * 2 * L::kTileBytes;
         const uint32_t sV = sK + L::kTileBytes;
         hopper::mbar_expect_tx(full_k(s), L::kTileBytes);
@@ -238,34 +272,34 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     for (int n = 0; n < n_tiles; ++n) {
       const int s = n % kDqStages;
       const uint32_t ph = (n / kDqStages) & 1;
-      const int k0 = (j_hi - n) * kDqBN;
+      const int k0 = (j_hi - n) * BN;
       const uint32_t sK = sKV + s * 2 * L::kTileBytes;
       const uint32_t sV = sK + L::kTileBytes;
       const bool skip =
           causal && (k0 > wpos_hi ||
-                     (window > 0 && k0 + kDqBN - 1 < wpos_lo - window + 1));
+                     (window > 0 && k0 + BN - 1 < wpos_lo - window + 1));
       hopper::mbar_wait(full_k(s), ph);
       hopper::mbar_wait(full_v(s), ph);
       __syncwarp();
       if (!skip) {
-        // S = Q K^T and dP = dO V^T, 64 rows x 64 columns each.
-        float sc[32], dp[32];
+        // S = Q K^T and dP = dO V^T, 64 rows x BN columns each.
+        float sc[BN / 2], dp[BN / 2];
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk / 4) * L::kQRegion + (kk % 4) * 32;
           const uint32_t koff = (kk / 4) * L::kKVRegion + (kk % 4) * 32;
-          hopper::wgmma_ss_n64<T>(sc, hopper::desc_sw128(sQc + off, 16, 1024),
-                                  hopper::desc_sw128(sK + koff, 16, 1024),
-                                  kk > 0);
+          hopper::wgmma_ss<T>(sc, hopper::desc_sw128(sQc + off, 16, 1024),
+                              hopper::desc_sw128(sK + koff, 16, 1024),
+                              kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk / 4) * L::kQRegion + (kk % 4) * 32;
           const uint32_t koff = (kk / 4) * L::kKVRegion + (kk % 4) * 32;
-          hopper::wgmma_ss_n64<T>(dp, hopper::desc_sw128(sdOc + off, 16, 1024),
-                                  hopper::desc_sw128(sV + koff, 16, 1024),
-                                  kk > 0);
+          hopper::wgmma_ss<T>(dp, hopper::desc_sw128(sdOc + off, 16, 1024),
+                              hopper::desc_sw128(sV + koff, 16, 1024),
+                              kk > 0);
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -275,12 +309,12 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         // dS = P (dP - delta) * scale, P = exp2(S scale log2 e - lse log2
         // e), in place of S; masked only where the tile needs it.
         const bool masked =
-            k0 + kDqBN > Skv ||
-            (causal && (k0 + kDqBN - 1 > wpos_lo ||
+            k0 + BN > Skv ||
+            (causal && (k0 + BN - 1 > wpos_lo ||
                         (window > 0 && k0 < wpos_hi - window + 1)));
         if (masked) {
 #pragma unroll
-          for (int j = 0; j < kDqBN / 8; ++j)
+          for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = k0 + j * 8 + 2 * t + (e & 1);
@@ -293,7 +327,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
             }
         } else {
 #pragma unroll
-          for (int j = 0; j < kDqBN / 8; ++j)
+          for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int i = e / 2;
@@ -303,9 +337,9 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         }
         // dS, rounded to T, as the A operand of dq += dS K: two 8-column
         // C chunks a k step; K read MN-major from the same tile.
-        uint32_t da[kDqBN / 16][4];
+        uint32_t da[BN / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kDqBN / 16; ++kk) {
+        for (int kk = 0; kk < BN / 16; ++kk) {
           da[kk][0] = Elem<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
           da[kk][1] = Elem<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
           da[kk][2] = Elem<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -315,7 +349,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         hopper::pin(da);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kDqBN / 16; ++kk)
+        for (int kk = 0; kk < BN / 16; ++kk)
           hopper::wgmma_rs<T>(
               acc, da[kk],
               hopper::desc_sw128(sK + kk * 2048, L::kKVRegion, 1024));
@@ -355,7 +389,8 @@ __device__ __forceinline__ void load_a_x4(uint32_t (&a)[4], const T* tile,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(DkvCfg<D>::kThreads,
+                                  DkvCfg<D>::kMinBlocks)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
@@ -363,10 +398,12 @@ __global__ void __launch_bounds__(kThreads, 2)
                          float* __restrict__ dk, float* __restrict__ dv,
                          int H, int kvh, int Sq, int Skv, int causal,
                          int window, int offset, float scale) {
+  using C = DkvCfg<D>;
   constexpr int LD = D + 8;
-  constexpr int NT = D / 8;
+  constexpr int NT = C::kDO / 8;  // 8-column tiles of the warp's dk, dv
   constexpr int NQ = kBQ2 / 16;  // 8-column tiles of half a q tile
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  constexpr int kBlock = C::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
   T* Vs = Ks + kBK * LD;
@@ -385,6 +422,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int t = lane % 4;
+  // The warp's 16 kv rows, and its first column of dk and dv.
+  const int wrow = C::kSplit == 1 ? warp : warp % 4;
+  const int c_lo = C::kSplit == 1 ? 0 : (warp / 4) * C::kDO;
   const float scale_log2 = scale * kLog2e;
 
   // The query rows that see any column of this kv tile.
@@ -411,7 +451,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int q0 = (i_lo + n % nq) * kBQ2;  // item n's q tile, copied
     T* qd = ring + 2 * st * kTile;
     T* od = qd + kTile;
-    for (int i = tid; i < kBQ2 * kChunks; i += kThreads) {
+    for (int i = tid; i < kBQ2 * kChunks; i += kBlock) {
       const int r = i / kChunks;
       const int c = (i % kChunks) * 8;
       const bool ok = q0 + r < Sq;
@@ -434,7 +474,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
 
   // K and V join the first item's commit group.
-  for (int i = tid; i < kBK * kChunks; i += kThreads) {
+  for (int i = tid; i < kBK * kChunks; i += kBlock) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
     const bool ok = k0 + r < Skv;
@@ -450,11 +490,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     attn::cp_async_commit();
   }
 
-  const int r_loc = warp * 16 + lane / 4;
+  const int r_loc = wrow * 16 + lane / 4;
   const int kpos[2] = {k0 + r_loc, k0 + r_loc + 8};
   // This warp's kv rows, for the choice between the masked and the
   // unmasked path.
-  const int kw_lo = k0 + warp * 16;
+  const int kw_lo = k0 + wrow * 16;
   const int kw_hi = kw_lo + 15;
   float dka[NT][4], dva[NT][4];
 #pragma unroll
@@ -501,8 +541,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t ak[4], av[4];
-        load_a_x4(ak, Ks, LD, warp * 16, kk * 16, lane);
-        load_a_x4(av, Vs, LD, warp * 16, kk * 16, lane);
+        load_a_x4(ak, Ks, LD, wrow * 16, kk * 16, lane);
+        load_a_x4(av, Vs, LD, wrow * 16, kk * 16, lane);
 #pragma unroll
         for (int j2 = 0; j2 < NQ / 2; ++j2) {
           uint32_t b0[2], b1[2];
@@ -544,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
       }
 
-      // dv += P^T dO and dk += dS^T Q.
+      // dv += P^T dO and dk += dS^T Q, over the warp's columns.
 #pragma unroll
       for (int kk = 0; kk < NQ / 2; ++kk) {
         uint32_t ap[4], ad[4];
@@ -553,10 +593,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int n2 = 0; n2 < NT / 2; ++n2) {
           uint32_t b0[2], b1[2];
-          load_b_kn_x2(b0, b1, dOs, LD, c0 + kk * 16, n2 * 16, lane);
+          const int n0 = c_lo + n2 * 16;
+          load_b_kn_x2(b0, b1, dOs, LD, c0 + kk * 16, n0, lane);
           Elem<T>::mma(dva[2 * n2], ap, b0);
           Elem<T>::mma(dva[2 * n2 + 1], ap, b1);
-          load_b_kn_x2(b0, b1, Qs, LD, c0 + kk * 16, n2 * 16, lane);
+          load_b_kn_x2(b0, b1, Qs, LD, c0 + kk * 16, n0, lane);
           Elem<T>::mma(dka[2 * n2], ad, b0);
           Elem<T>::mma(dka[2 * n2 + 1], ad, b1);
         }
@@ -570,7 +611,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (kpos[i] >= Skv) continue;
-    const size_t off = (static_cast<size_t>(bk) * Skv + kpos[i]) * D + 2 * t;
+    const size_t off =
+        (static_cast<size_t>(bk) * Skv + kpos[i]) * D + c_lo + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       *reinterpret_cast<float2*>(dk + off + n * 8) =
@@ -595,8 +637,8 @@ cudaError_t launch_dq(const Args& a, float* dq) {
   CUtensorMap tq, tdo, tk, tv;
   if (!hopper::map_rows(&tq, a.q, kBf16, D, a.Sq, a.B * a.H, kDqBM) ||
       !hopper::map_rows(&tdo, a.dout, kBf16, D, a.Sq, a.B * a.H, kDqBM) ||
-      !hopper::map_rows(&tk, a.k, kBf16, D, a.Skv, a.B * a.kvh, kDqBN) ||
-      !hopper::map_rows(&tv, a.v, kBf16, D, a.Skv, a.B * a.kvh, kDqBN))
+      !hopper::map_rows(&tk, a.k, kBf16, D, a.Skv, a.B * a.kvh, kDqBN<D>) ||
+      !hopper::map_rows(&tv, a.v, kBf16, D, a.Skv, a.B * a.kvh, kDqBN<D>))
     return cudaErrorInvalidValue;
   constexpr size_t smem = DqSmem<D>::kBytes;
   static bool configured = false;
@@ -618,7 +660,8 @@ cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
       allow_smem(flash_bwd_dkv_kernel<T, D>, smem, &configured);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.kvh, (a.Skv + kBK - 1) / kBK);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+  constexpr int threads = DkvCfg<D>::kThreads;
+  flash_bwd_dkv_kernel<T, D><<<grid, threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, dk, dv, a.H, a.kvh, a.Sq, a.Skv, a.causal, a.window, a.offset,
@@ -626,13 +669,15 @@ cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
   return cudaGetLastError();
 }
 
-// Dispatch on dtype (1 bfloat16, 2 float16) and head dim (64, 128).
+// Dispatch on dtype (1 bfloat16, 2 float16) and head dim (64, 128, 256).
 template <template <typename, int> class Fn, typename... Out>
 cudaError_t dispatch(int dtype, int d, const Args& a, Out... out) {
   if (dtype == 1 && d == 64) return Fn<__nv_bfloat16, 64>::run(a, out...);
   if (dtype == 1 && d == 128) return Fn<__nv_bfloat16, 128>::run(a, out...);
+  if (dtype == 1 && d == 256) return Fn<__nv_bfloat16, 256>::run(a, out...);
   if (dtype == 2 && d == 64) return Fn<__half, 64>::run(a, out...);
   if (dtype == 2 && d == 128) return Fn<__half, 128>::run(a, out...);
+  if (dtype == 2 && d == 256) return Fn<__half, 256>::run(a, out...);
   return cudaErrorInvalidValue;
 }
 

@@ -22,21 +22,25 @@
 //     warpgroups: a producer, its registers lowered to 24 by setmaxnreg,
 //     whose one thread issues every TMA copy; two consumers (240
 //     registers each) that own 64 query rows apiece.
-//   - Copies.  Q is loaded once; K and V tiles of 128 columns go through
-//     a two-stage ring, each stage with a full barrier for K, one for V
+//   - Copies.  Q is loaded once; K and V tiles of 128 columns (64 at d
+//     256) go through a two-stage ring, each stage with a full barrier for K, one for V
 //     (S = Q K^T starts before V lands) and an empty barrier the 256
 //     consumer threads arrive on once their P V product has read the
 //     stage.  The copies are 3-d TMA boxes (64 columns x rows x one
 //     head) with the 128-byte swizzle that the wgmma descriptors read;
 //     TMA zero-fills rows past Sq and Skv.  d 128: 161 KB of shared
 //     memory (Q 32 KB, two stages of 64 KB, the barriers), one block an
-//     SM; d 64: 81 KB.  The producer stays until its last copies have
-//     landed, so none is in flight when the block exits.
-//   - Products.  S = Q K^T is wgmma m64n128k16 with both operands in
-//     shared memory.  P, rounded to the input type in registers (as the
-//     rounding bound's u A term assumes), is the register A operand of
-//     O += P V (m64n{d}k16), V read MN-major.  S, P and the f32 output
-//     accumulator stay in registers for the whole kv loop.
+//     SM; d 64: 81 KB; d 256: 193 KB (Q 64 KB, two stages of 64-column K
+//     and V, 64 KB each: 128-column ones would need 320 KB).  The
+//     producer stays until its last copies have landed, so none is in
+//     flight when the block exits.
+//   - Products.  S = Q K^T is wgmma m64n128k16 (m64n64k16 at d 256) with
+//     both operands in shared memory.  P, rounded to the input type in
+//     registers (as the rounding bound's u A term assumes), is the
+//     register A operand of O += P V (m64n{d}k16: m64n256k16, the widest
+//     N, at d 256), V read MN-major.  S, P and the f32 output
+//     accumulator stay in registers for the whole kv loop: at d 256 a
+//     consumer thread holds 128 of O, 32 of S and 16 of P.
 //   - Softmax.  Online, on the wgmma accumulator layout, in base 2:
 //     scores are scaled by scale * log2(e) and exponentiated with
 //     exp2f; the row sum is kept per thread and reduced over the row's
@@ -49,8 +53,8 @@
 //     predicate as the loop's bounds.  Tiles run from the last (the
 //     diagonal) down.
 // ptxas (-Xptxas -v, CUDA 12.8, sm_90a): 168 registers a thread at
-// launch for every instantiation (setmaxnreg then moves the producer to
-// 24 and the consumers to 240), no spills.
+// launch for every instantiation, d 256 included (setmaxnreg then moves
+// the producer to 24 and the consumers to 240), no spills.
 // Still to come for speed: a persistent grid, overlapping one tile's
 // softmax with the other consumer's products (ping-pong), FP8.
 //
@@ -66,8 +70,11 @@ namespace {
 using namespace flash;
 
 constexpr int kBM = 128;      // query rows per block (two consumers of 64)
-constexpr int kBN = 128;      // kv columns per tile
 constexpr int kStages = 2;    // K/V ring depth
+// kv columns per tile: 128, and 64 at d 256, where Q (64 KB) and a ring
+// of two 128-column K and V stages (256 KB) would not fit.
+template <int D>
+constexpr int kBN = D == 256 ? 64 : 128;
 constexpr int kBlockThreads = 384;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -76,7 +83,7 @@ template <int D>
 struct Smem {
   static constexpr uint32_t kRegions = D / 64;         // 64-column regions
   static constexpr uint32_t kQRegion = kBM * 128;      // bytes
-  static constexpr uint32_t kKVRegion = kBN * 128;
+  static constexpr uint32_t kKVRegion = kBN<D> * 128;
   static constexpr uint32_t kQBytes = kRegions * kQRegion;
   static constexpr uint32_t kTileBytes = kRegions * kKVRegion;  // K or V
   static constexpr uint32_t kBars = kQBytes + kStages * 2 * kTileBytes;
@@ -94,6 +101,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                      int kvh, int Sq, int Skv, int causal, int window,
                      int offset, float scale_log2) {
   using L = Smem<D>;
+  constexpr int BN = kBN<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;
@@ -118,8 +126,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     k_hi = min(k_hi, q_last + offset);
     if (window > 0) k_lo = max(0, q0 + offset - window + 1);
   }
-  const int j_lo = k_lo / kBN;
-  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / kBN;
+  const int j_lo = k_lo / BN;
+  const int j_hi = k_hi < k_lo ? j_lo - 1 : k_hi / BN;
   const int n_tiles = j_hi - j_lo + 1;
 
   if (threadIdx.x == 0) {
@@ -145,7 +153,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       for (int n = 0; n < n_tiles; ++n) {
         const int s = n % kStages;
         hopper::mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);
-        const int k0 = (j_hi - n) * kBN;
+        const int k0 = (j_hi - n) * BN;
         const uint32_t sK = sKV + s * 2 * L::kTileBytes;
         const uint32_t sV = sK + L::kTileBytes;
         hopper::mbar_expect_tx(full_k(s), L::kTileBytes);
@@ -191,12 +199,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     for (int n = 0; n < n_tiles; ++n) {
       const int s = n % kStages;
       const uint32_t ph = (n / kStages) & 1;
-      const int k0 = (j_hi - n) * kBN;
+      const int k0 = (j_hi - n) * BN;
       const uint32_t sK = sKV + s * 2 * L::kTileBytes;
       const uint32_t sV = sK + L::kTileBytes;
 
-      // S = Q K^T, 64 rows x 128 columns.
-      float sc[64];
+      // S = Q K^T, 64 rows x BN columns.
+      float sc[BN / 2];
       hopper::mbar_wait(full_k(s), ph);
       __syncwarp();
       hopper::wgmma_fence();
@@ -207,7 +215,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
             sQc + (kk / 4) * L::kQRegion + off, 16, 1024);
         const uint64_t db = hopper::desc_sw128(
             sK + (kk / 4) * L::kKVRegion + off, 16, 1024);
-        hopper::wgmma_ss_n128<T>(sc, da, db, kk > 0);
+        hopper::wgmma_ss<T>(sc, da, db, kk > 0);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -215,13 +223,13 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 
       // Online softmax in base 2, masked only where the tile needs it.
       const bool masked =
-          k0 + kBN > Skv ||
-          (causal && (k0 + kBN - 1 > wpos_lo ||
+          k0 + BN > Skv ||
+          (causal && (k0 + BN - 1 > wpos_lo ||
                       (window > 0 && k0 < wpos_hi - window + 1)));
       float mx[2] = {m[0], m[1]};
       if (masked) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = k0 + j * 8 + 2 * t + (e & 1);
@@ -234,7 +242,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
           }
       } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float x = sc[4 * j + e] * scale_log2;
@@ -252,7 +260,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       }
       if (masked) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = k0 + j * 8 + 2 * t + (e & 1);
@@ -263,7 +271,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
           }
       } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float p = exp2f(sc[4 * j + e] - m[e / 2]);
@@ -279,9 +287,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         o[4 * j + 3] *= corr[1];
       }
       // P as the A operand of P V: two 8-column C chunks a k step.
-      uint32_t pa[kBN / 16][4];
+      uint32_t pa[BN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
+      for (int kk = 0; kk < BN / 16; ++kk) {
         pa[kk][0] = Elem<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
         pa[kk][1] = Elem<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
         pa[kk][2] = Elem<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -295,7 +303,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       hopper::pin(pa);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk)
         hopper::wgmma_rs<T>(
             o, pa[kk], hopper::desc_sw128(sV + kk * 2048, L::kKVRegion, 1024));
       hopper::wgmma_commit();
@@ -330,8 +338,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   CUtensorMap tq, tk, tv;
   if (!hopper::map_rows(&tq, q, kBf16, D, Sq, B * H, kBM) ||
-      !hopper::map_rows(&tk, k, kBf16, D, Skv, B * kvh, kBN) ||
-      !hopper::map_rows(&tv, v, kBf16, D, Skv, B * kvh, kBN))
+      !hopper::map_rows(&tk, k, kBf16, D, Skv, B * kvh, kBN<D>) ||
+      !hopper::map_rows(&tv, v, kBf16, D, Skv, B * kvh, kBN<D>))
     return cudaErrorInvalidValue;
   constexpr size_t smem = Smem<D>::kBytes;
   static bool configured = false;
@@ -356,6 +364,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                            window, offset, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, lse, B, H, kvh, Sq, Skv, causal,
+                            window, offset, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, lse, B, H, kvh, Sq, Skv, causal,
                             window, offset, scale, stream);
     default:
       return cudaErrorInvalidValue;

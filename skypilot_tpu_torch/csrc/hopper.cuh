@@ -6,7 +6,7 @@
 // 128-byte swizzle: a box of 64 16-bit columns by R rows lands as R rows
 // of 128 bytes, 16-byte chunk c of row r at chunk c ^ (r % 8), in atoms
 // of 8 rows (1024 bytes) that must start 1024-byte aligned.  A d-wide
-// tile (d = 64 or 128) is held as d / 64 such regions, one per 64
+// tile (d = 64, 128 or 256) is held as d / 64 such regions, one per 64
 // columns.  wgmma reads the same layout through a matrix descriptor:
 //   K-major (the contraction dim contiguous: Q and K for Q K^T):
 //     start = region + 32 bytes per 16-column k step, SBO = 1024 (the
@@ -151,12 +151,23 @@ __device__ __forceinline__ void wgmma_wait() {
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31"
+#define HOPPER_R16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_R128                                                         \
+  HOPPER_R64 ", "                                                           \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "       \
+  "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "       \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "    \
+  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "      \
+  "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "      \
+  "%125, %126, %127"
 #define HOPPER_F4(d, i) \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define HOPPER_F16(d, i) \
   HOPPER_F4(d, i), HOPPER_F4(d, i + 4), HOPPER_F4(d, i + 8), HOPPER_F4(d, i + 12)
 #define HOPPER_F32(d, i) HOPPER_F16(d, i), HOPPER_F16(d, i + 16)
 #define HOPPER_F64(d, i) HOPPER_F32(d, i), HOPPER_F32(d, i + 32)
+#define HOPPER_F128(d, i) HOPPER_F64(d, i), HOPPER_F64(d, i + 64)
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared
 // memory; with `accumulate` 0, D = A B.
@@ -195,6 +206,38 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
     HOPPER_SS_N64("f16");
 }
 
+// The same at N = 32: D[64 x 32] (+)= A[64 x 16] B[16 x 32].
+#define HOPPER_SS_N32(TY)                                                 \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "         \
+      "{" HOPPER_R16 "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                   \
+      : HOPPER_F16(d, 0)                                                  \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    HOPPER_SS_N32("bf16");
+  else
+    HOPPER_SS_N32("f16");
+}
+
+// S (+)= A B with both in shared memory, N the accumulator's columns
+// (twice its registers a thread): 128, 64 or 32.
+template <typename T, int R>
+__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  static_assert(R == 64 || R == 32 || R == 16, "N = 128, 64 or 32");
+  if constexpr (R == 64)
+    wgmma_ss_n128<T>(d, da, db, accumulate);
+  else if constexpr (R == 32)
+    wgmma_ss_n64<T>(d, da, db, accumulate);
+  else
+    wgmma_ss_n32<T>(d, da, db, accumulate);
+}
+
 // D[64 x N] += A[64 x 16] B[16 x N], A from registers (mma.sync A
 // fragments), B MN-major in shared memory.
 #define HOPPER_RS_N128(TY)                                                \
@@ -204,6 +247,13 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "{" HOPPER_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"     \
       : HOPPER_F64(d, 0)                                                  \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define HOPPER_RS_N256(TY)                                                \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "        \
+      "{" HOPPER_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"\
+      : HOPPER_F128(d, 0)                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 #define HOPPER_RS_N64(TY)                                                 \
   asm volatile(                                                           \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
@@ -212,6 +262,15 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : HOPPER_F32(d, 0)                                                  \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    HOPPER_RS_N256("bf16");
+  else
+    HOPPER_RS_N256("f16");
+}
 template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
@@ -259,8 +318,8 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map over a contiguous [planes, rows, d] 16-bit tensor (d = 64 or
-// 128) whose box is 64 columns x box_rows rows of one plane, 128-byte
+// A map over a contiguous [planes, rows, d] 16-bit tensor (d = 64, 128
+// or 256) whose box is 64 columns x box_rows rows of one plane, 128-byte
 // swizzled, zero-filled outside the tensor.  Returns false on failure.
 inline bool map_rows(CUtensorMap* map, const void* ptr, bool bf16, int d,
                      int rows, int planes, int box_rows) {

@@ -15,10 +15,11 @@ weights and caches are models/llama.py's:
     the prefill, decode, verify, mixed and draft forwards, the decode
     graphs);
   - head_dim decoupled from dim: 256 for every config but the tiny one,
-    which the serving kernels 4 and 5 take at that width.
-Training a Gemma model is not ported yet (train/trainer.py
-`check_supported` raises): the flash kernels 1-3 do not take head width
-256.
+    which the serving kernels 4 and 5 and the flash kernels 1-3 take at
+    that width.
+Gemma trains through the shared `train_forward` (remat 'nothing' or
+'save_attn', LoRA adapters, `train_only`), its loss over the softcapped
+tied head, whole or chunk by chunk (train/trainer.py).
 """
 from __future__ import annotations
 

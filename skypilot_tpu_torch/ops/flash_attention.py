@@ -33,7 +33,7 @@ fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
 
-_SUPPORTED_D = (64, 128)
+_SUPPORTED_D = (64, 128, 256)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float16)
 _GEOMETRY = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
@@ -249,11 +249,8 @@ def _check_cuda(what: str, tensors, q: torch.Tensor) -> None:
                              '16-byte aligned')
     d = q.shape[3]
     if d not in _SUPPORTED_D:
-        when = (": the flash kernels at that width come with ROADMAP.md "
-                "queue 1 'Gemma training and the flash kernels at head "
-                "width 256'" if d == 256 else '')
         raise ValueError(f'{what} kernel takes head_dim in {_SUPPORTED_D}, '
-                         f'got {d}{when}')
+                         f'got {d}')
     if q.dtype not in _SUPPORTED_DTYPES:
         raise ValueError(f'{what} kernel runs on the tensor cores and takes '
                          f'bfloat16 or float16, got {q.dtype}')
@@ -274,8 +271,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(out [B, H, Sq, d] in q's dtype, lse [B, H, Sq] f32).
 
     q [B, H, Sq, d], k/v [B, kvh, Skv, d].  On CUDA the kernel takes
-    bfloat16 or float16 (one dtype for q, k and v), head_dim 64 or 128,
-    contiguous tensors."""
+    bfloat16 or float16 (one dtype for q, k and v), head_dim 64, 128 or
+    256, contiguous tensors."""
     global fwd_launches
     _check_geometry(q, k, v, causal=causal, window=window, offset=offset)
     if not q.is_cuda:

@@ -18,7 +18,10 @@ get no update, no weight decay and no AdamW moments (its
 multi_transform with set_to_zero), and the grad norm and its clipping
 cover the trainable parameters alone.  `loss_chunk` > 0 applies the f32
 head per chunk of the sequence under activation checkpointing
-(`loss_fn_chunked`), so at most [B, chunk, V] f32 logits are live.
+(`loss_fn_chunked`), so at most [B, chunk, V] f32 logits are live.  The
+head is the model's own (`model.head`): a tied head reads tok_embed, and
+gemma's softcaps each chunk's f32 logits, cap * tanh(logits / cap), as
+the reference's `_chunked_ce_sums` does.
 `Trainer.train` saves checkpoints (train/checkpoint.py) every
 `checkpoint_every` steps.
 
@@ -79,14 +82,6 @@ class TrainConfig:
 
 def check_supported(config: TrainConfig) -> None:
     """Raise for every setting this slice does not port."""
-    from skypilot_tpu_torch.models.gemma import GemmaConfig
-    if isinstance(models_lib.get_config(config.model,
-                                        **config.model_overrides),
-                  GemmaConfig):
-        raise ValueError(
-            f'model {config.model!r}: training the gemma family is not '
-            "ported yet (ROADMAP.md queue 1: 'Gemma training and the flash "
-            "kernels at head width 256'); its configs serve")
     big = [a for a in _AXES if getattr(config.mesh, a) > 1]
     if big:
         raise ValueError(f'mesh axes {big} > 1: multi-device training is not '

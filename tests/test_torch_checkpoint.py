@@ -3,7 +3,8 @@ in pytest's tmp_path.
 
   - save, a fresh Trainer, `restore_or_init` and two more steps equal
     four uninterrupted steps bit for bit (losses, parameters, AdamW
-    moments), full and LoRA `train_only` training;
+    moments), full and LoRA `train_only` training, llama-tiny and
+    gemma-tiny at head width 256 (softcapped, the tied head);
   - a base checkpoint without adapters opened by a LoRA `train_only`
     trainer loads through the params-only partial restore, as the
     reference's tests/unit_tests/test_lora.py:128-169 holds: base params
@@ -20,9 +21,12 @@ in pytest's tmp_path.
     own `checkpoint.save` wrote: the port's logits are the JAX model's
     (1e-4 absolute), and the converted AdamW state resumes the JAX run
     (one more step: loss 1e-5 relative, params 2e-6 absolute, as
-    tests/test_torch_train.py).
+    tests/test_torch_train.py); the same for a JAX gemma-tiny run at
+    head width 256 (full training: the tied tok_embed's Adam moments
+    too).
 """
 import importlib.util
+import json
 import os
 
 import jax
@@ -36,6 +40,7 @@ from skypilot_tpu.train import checkpoint as jckpt
 from skypilot_tpu.train import data as jdata
 from skypilot_tpu.train import trainer as jtrainer
 from skypilot_tpu_torch import bridge
+from skypilot_tpu_torch import models as tmodels
 from skypilot_tpu_torch.infer import engine as teng
 from skypilot_tpu_torch.infer import server as tserver
 from skypilot_tpu_torch.models import llama as tllama
@@ -47,6 +52,9 @@ from skypilot_tpu_torch.train import trainer as ttrainer
 SEQ = 16
 OV = dict(n_heads=4, n_kv_heads=2, max_seq_len=SEQ, dtype='float32')
 LORA = dict(lora_rank=4, remat_policy='save_attn')
+# gemma-tiny at head width 256 (2 heads over 1), softcapped.
+GEMMA_OV = dict(head_dim=256, n_heads=2, n_kv_heads=1, dim=128, n_layers=2,
+                final_logit_softcap=30.0, max_seq_len=SEQ, dtype='float32')
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -60,16 +68,18 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _config(lora=False, **kw):
-    ov = dict(OV, **(LORA if lora else {}))
+def _config(lora=False, model='llama-tiny', **kw):
+    ov = dict(OV if model == 'llama-tiny' else GEMMA_OV,
+              **(LORA if lora else {}))
     return ttrainer.TrainConfig(
-        model='llama-tiny', global_batch_size=2, seq_len=SEQ, warmup_steps=1,
+        model=model, global_batch_size=2, seq_len=SEQ, warmup_steps=1,
         total_steps=10, model_overrides=ov,
         train_only='lora' if lora else None, **kw)
 
 
-def _trainer(lora=False, **kw):
-    return ttrainer.Trainer(_config(lora=lora, **kw), device='cpu')
+def _trainer(lora=False, model='llama-tiny', **kw):
+    return ttrainer.Trainer(_config(lora=lora, model=model, **kw),
+                            device='cpu')
 
 
 def _stream(start=0):
@@ -88,14 +98,17 @@ def _equal_state(a, b):
             assert torch.equal(t, want[name]), (moment, name)
 
 
-@pytest.mark.parametrize('lora', [False, True], ids=['full', 'lora'])
-def test_resume_equals_uninterrupted(tmp_path, lora):
-    whole = _trainer(lora)
+@pytest.mark.parametrize('lora,model', [
+    (False, 'llama-tiny'), (True, 'llama-tiny'), (False, 'gemma-tiny'),
+    (True, 'gemma-tiny'),
+], ids=['full', 'lora', 'gemma-d256-full', 'gemma-d256-lora'])
+def test_resume_equals_uninterrupted(tmp_path, lora, model):
+    whole = _trainer(lora, model)
     whole.init_state()
     it = _stream()
     want = [float(whole.step(next(it))['loss']) for _ in range(4)]
 
-    first = _trainer(lora)
+    first = _trainer(lora, model)
     first.init_state()
     it = _stream()
     got = [float(first.step(next(it))['loss']) for _ in range(2)]
@@ -105,7 +118,7 @@ def test_resume_equals_uninterrupted(tmp_path, lora):
     assert {n for n in os.listdir(tmp_path / '2')} == {
         'params.pt', 'opt_state.pt', 'step.pt'}
 
-    resumed = _trainer(lora)
+    resumed = _trainer(lora, model)
     assert ckpt.restore_or_init(ckpt.make_manager(str(tmp_path)),
                                 resumed) == 2
     it = _stream(resumed.step_count)
@@ -281,11 +294,23 @@ def test_orbax_checkpoint_converts(tmp_path):
     `checkpoint.save`, converted by scripts/orbax_to_torch.py: the
     params give the JAX model's logits, and the whole checkpoint resumes
     the JAX run in the port."""
-    ov = dict(OV, lora_rank=4)
+    _orbax_converts_and_resumes(tmp_path, 'llama-tiny',
+                                dict(OV, lora_rank=4), 'lora')
+
+
+def test_orbax_gemma_checkpoint_converts(tmp_path):
+    """The same for a JAX gemma-tiny run at head width 256, softcapped,
+    every parameter trained (no lm_head: the tied tok_embed and its Adam
+    moments convert once)."""
+    _orbax_converts_and_resumes(tmp_path, 'gemma-tiny', GEMMA_OV, None)
+
+
+def _orbax_converts_and_resumes(tmp_path, model_name, ov, train_only):
     mesh = jmesh.make_mesh(jmesh.MeshConfig(), devices=jax.devices()[:1])
     jt = jtrainer.Trainer(jtrainer.TrainConfig(
-        model='llama-tiny', global_batch_size=2, seq_len=SEQ, warmup_steps=1,
-        total_steps=10, model_overrides=ov, train_only='lora'), mesh=mesh)
+        model=model_name, global_batch_size=2, seq_len=SEQ, warmup_steps=1,
+        total_steps=10, model_overrides=ov, train_only=train_only),
+        mesh=mesh)
     jt.init_state()
     jit = jdata.synthetic_data(jt.mesh, global_batch_size=2, seq_len=SEQ,
                                vocab_size=512)
@@ -295,16 +320,15 @@ def test_orbax_checkpoint_converts(tmp_path):
     jckpt.save(manager, jt.state, wait=True)
     manager.close()
     script = _orbax_to_torch()
-    overrides = '{"n_heads": 4, "n_kv_heads": 2, "max_seq_len": 16, ' \
-        '"dtype": "float32", "lora_rank": 4}'
+    overrides = json.dumps(ov)
+    named = ['--model', model_name]
     assert script.main(['--src', str(tmp_path / 'orbax'), '--dst',
                         str(tmp_path / 'port'), '--model-overrides',
-                        overrides]) == 2
+                        overrides, *named]) == 2
     assert script.main(['--src', str(tmp_path / 'orbax'), '--dst',
                         str(tmp_path / 'serve'), '--model-overrides',
-                        overrides, '--params-only']) == 0
-    cfg = tllama.get_config('llama-tiny', **ov)
-    model = tllama.Llama(cfg, torch.device('cpu'))
+                        overrides, '--params-only', *named]) == 0
+    model, cfg = tmodels.get_model(model_name, device='cpu', **ov)
     model.load_state_dict(ckpt.load_params_for_serving(
         ckpt.make_manager(str(tmp_path / 'serve'))))
     tok = np.random.RandomState(0).randint(0, 512, (2, SEQ)).astype(
@@ -316,8 +340,9 @@ def test_orbax_checkpoint_converts(tmp_path):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
     # Resume: the port's next step is the JAX trainer's next step.
     tt = ttrainer.Trainer(ttrainer.TrainConfig(
-        model='llama-tiny', global_batch_size=2, seq_len=SEQ, warmup_steps=1,
-        total_steps=10, model_overrides=ov, train_only='lora'), device='cpu')
+        model=model_name, global_batch_size=2, seq_len=SEQ, warmup_steps=1,
+        total_steps=10, model_overrides=ov, train_only=train_only),
+        device='cpu')
     assert ckpt.restore_or_init(ckpt.make_manager(str(tmp_path / 'port')),
                                 tt) == 2
     jm = jt.step(next(jit))

@@ -7,7 +7,8 @@ params through `bridge.params_from_jax`) and the same batch, its second
 row's tail masked, go through both packages: the loss, the accuracy and
 every parameter's gradient must agree at the tolerances of
 tests/test_torch_train.py (loss 1e-5 relative; gradients 1e-5 absolute
-+ 1e-4 relative).  Against the port's own unchunked loss, which differs
++ 1e-4 relative); so must gemma-tiny at head width 256, whose tied head
+is softcapped (final_logit_softcap=30.0) chunk by chunk.  Against the port's own unchunked loss, which differs
 only in summation order, the same tolerances hold.  The head runs on
 [B, chunk] hidden states only, twice a chunk under autograd (the
 forward, then its rerun in the backward pass), so at most [B, chunk, V]
@@ -20,16 +21,21 @@ import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu import models as jmodels
 from skypilot_tpu.models import llama as jllama
 from skypilot_tpu.parallel import mesh as jmesh
 from skypilot_tpu.parallel import sharding
 from skypilot_tpu.train import trainer as jtrainer
 from skypilot_tpu_torch import bridge
+from skypilot_tpu_torch import models as tmodels
 from skypilot_tpu_torch.models import llama as tllama
 from skypilot_tpu_torch.train import trainer as ttrainer
 
 SEQ = 32
 OV = dict(n_heads=4, n_kv_heads=2, max_seq_len=SEQ, dtype='float32')
+# gemma-tiny at head width 256, its tied head softcapped at 30.
+GEMMA_OV = dict(head_dim=256, n_heads=2, n_kv_heads=1, dim=128, n_layers=2,
+                final_logit_softcap=30.0, max_seq_len=SEQ, dtype='float32')
 CPU = torch.device('cpu')
 
 
@@ -43,21 +49,41 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+def _batch():
+    rng = np.random.RandomState(4)
+    batch = {'inputs': rng.randint(0, 512, (2, SEQ)).astype(np.int32),
+             'targets': rng.randint(1, 512, (2, SEQ)).astype(np.int32),
+             'mask': np.ones((2, SEQ), np.float32)}
+    batch['mask'][1, 21:] = 0.0
+    return batch
+
+
 @pytest.fixture(scope='module')
 def reference():
     """(JAX model, its params, a batch with a masked tail)."""
     jmodel = jllama.Llama(jllama.get_config('llama-tiny', **OV))
     params = sharding.unbox(jmodel.init(
         jax.random.PRNGKey(7), jnp.zeros((1, SEQ), jnp.int32))['params'])
-    rng = np.random.RandomState(4)
-    batch = {'inputs': rng.randint(0, 512, (2, SEQ)).astype(np.int32),
-             'targets': rng.randint(1, 512, (2, SEQ)).astype(np.int32),
-             'mask': np.ones((2, SEQ), np.float32)}
-    batch['mask'][1, 21:] = 0.0
-    return jmodel, params, batch
+    return jmodel, params, _batch()
 
 
-def _port(params):
+@pytest.fixture(scope='module')
+def gemma_reference():
+    """The same for gemma-tiny at d 256, softcapped: (JAX model, its
+    config, its params, the batch)."""
+    jmodel, jcfg = jmodels.get_model('gemma-tiny', **GEMMA_OV)
+    params = sharding.unbox(jmodel.init(
+        jax.random.PRNGKey(7), jnp.zeros((1, SEQ), jnp.int32))['params'])
+    return jmodel, jcfg, params, _batch()
+
+
+def _port(params, model='llama-tiny'):
+    if model == 'gemma-tiny':
+        model, cfg = tmodels.get_model('gemma-tiny', device=CPU, **GEMMA_OV)
+        model.load_state_dict(bridge.params_from_jax(
+            jax.tree.map(np.asarray, params), cfg))
+        model.requires_grad_(True)
+        return model, cfg
     cfg = tllama.get_config('llama-tiny', **OV)
     model = tllama.Llama(cfg, CPU)
     model.load_state_dict(bridge.params_from_jax(
@@ -75,9 +101,20 @@ def _close(got, want, msg=''):
                                err_msg=msg)
 
 
-@pytest.mark.parametrize('chunk', [8, 16, 32])
-def test_chunked_loss_and_every_gradient_match_jax(reference, chunk):
-    jmodel, params, batch = reference
+@pytest.mark.parametrize('model,chunk', [
+    ('llama-tiny', 8), ('llama-tiny', 16), ('llama-tiny', 32),
+    ('gemma-tiny', 8), ('gemma-tiny', 32),
+], ids=['8', '16', '32', 'gemma_d256_softcap-8', 'gemma_d256_softcap-32'])
+def test_chunked_loss_and_every_gradient_match_jax(request, model, chunk):
+    """gemma's tied head (no lm_head: tok_embed's gradient sums the
+    lookup's and the head's) is softcapped chunk by chunk on both
+    sides."""
+    jcfg = None
+    if model == 'gemma-tiny':
+        jmodel, jcfg, params, batch = request.getfixturevalue(
+            'gemma_reference')
+    else:
+        jmodel, params, batch = request.getfixturevalue('reference')
 
     def apply_fn(variables, tokens, return_hidden=False):
         return (jmodel.apply(variables, tokens, return_hidden=return_hidden),
@@ -85,9 +122,10 @@ def test_chunked_loss_and_every_gradient_match_jax(reference, chunk):
 
     (jloss, jm), jgrads = jax.value_and_grad(
         lambda p: jtrainer.loss_fn_chunked(
-            p, apply_fn, jax.tree.map(jnp.asarray, batch), chunk=chunk),
+            p, apply_fn, jax.tree.map(jnp.asarray, batch), chunk=chunk,
+            model_config=jcfg),
         has_aux=True)(params)
-    model, cfg = _port(params)
+    model, cfg = _port(params, model)
     m = ttrainer.compute_grads(
         model, {k: torch.from_numpy(v) for k, v in batch.items()},
         loss_chunk=chunk)

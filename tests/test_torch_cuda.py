@@ -17,8 +17,12 @@ at llama3-8b's heads, the serving path's multi-query widths: a
 speculative verify (S 5, also under a window), a mixed step (S 64), and
 a verify's pad queries reading table entries that point at the null
 page (which then holds other rows' pad writes: finite garbage).
-The dq pass: its 128-row blocks, 64-column ring and the tiles a consumer
-skips or masks.  f16 outputs hold to the bf16 bounds with u = 2^-11.
+The dq pass: its 128-row blocks, 64-column ring (32-column at d 256) and
+the tiles a consumer skips or masks.  Flash kernels 1-3 at head width
+256 (gemma): G 1 and G 8, causal, windowed, ragged, at an offset; and a
+dk or dv with a dropped column half (the d 256 dk/dv pass splits each
+16 kv rows' columns between two warps) or a dq missing its last kv tile
+must fail the same check.  f16 outputs hold to the bf16 bounds with u = 2^-11.
 Prefix sharing and int8 weights on the serving path: the paged decode
 kernel over tables whose leading pages are shared by every row (float
 and int8 pools, within the bounds below); hydrate then insert with
@@ -686,10 +690,23 @@ def _assert_within(name, got, want, tol):
     # dk/dv group sum over 7 heads).
     (2, 12, 12, 300, 64, True, None, 0),
     (1, 28, 4, 320, 128, True, None, 0),
+    # Head width 256 (gemma): gemma-7b's group of 1 and gemma-2b's of 8
+    # (the dk/dv group sum over 8 heads), causal, windowed, ragged, at an
+    # offset and not causal; the forward's 64-column kv tiles and the dq
+    # pass's 32-column ones in odd and even counts.
+    (2, 4, 4, 256, 256, True, None, 0),
+    (1, 8, 1, 320, 256, True, None, 0),
+    (1, 8, 1, 300, 256, True, 70, 0),
+    (1, 4, 4, 200, 256, True, 17, 0),
+    (1, 4, 2, 129, 256, True, None, 0),
+    (1, 8, 1, 256, 256, True, None, 130),
+    (1, 4, 1, 130, 256, False, None, 0),
 ], ids=['g1_d64', 'g4_b2', 'ragged', 'mqa_noncausal_ragged', 'window',
         'offset', 'llama3_8b_heads', 's129', 's640_odd_tiles',
         's768_even_tiles', 'window17', 'offset130', 'g8_s320',
-        'gpt2_g1_d64', 'qwen2_7b_g7'])
+        'gpt2_g1_d64', 'qwen2_7b_g7', 'd256_g1_b2', 'd256_g8',
+        'd256_g8_window70', 'd256_g1_window17', 'd256_s129',
+        'd256_g8_offset130', 'd256_noncausal_ragged'])
 def test_flash_kernels_match_plain(dev, dtype, b, h, kvh, s, d, causal,
                                    window, offset):
     q, k, v, do = _flash_case(dev, dtype, b, h, kvh, s, d)
@@ -725,14 +742,18 @@ def test_flash_kernels_match_plain(dev, dtype, b, h, kvh, s, d, causal,
     (2, 4, 1, 256, 128, True, None, 70),
     (1, 4, 2, 576, 128, True, None, 0),
     (1, 4, 2, 1024, 64, True, None, 0),
+    (1, 4, 2, 96, 256, True, None, 0),
+    (1, 4, 1, 352, 256, True, 32, 0),
+    (1, 4, 4, 161, 256, True, None, 37),
 ], ids=['s65', 'ragged_d64', 'window100', 'window64', 'noncausal_d64',
-        'offset70', 's576_odd_tiles', 's1024_d64_even_tiles'])
+        'offset70', 's576_odd_tiles', 's1024_d64_even_tiles',
+        'd256_s96_odd_tiles', 'd256_window32', 'd256_ragged_offset37'])
 def test_flash_dq_kernel_matches_plain(dev, dtype, b, h, kvh, s, d, causal,
                                        window, offset):
-    """The dq pass's 128-row blocks, 64-column K/V ring and the tiles a
-    consumer warpgroup skips or masks: rows past a tile, windows below and
-    at a tile, a ragged non-causal tile, an offset diagonal, odd and even
-    counts of ring tiles."""
+    """The dq pass's 128-row blocks, K/V ring (64-column tiles, 32 at d
+    256) and the tiles a consumer warpgroup skips or masks: rows past a
+    tile, windows below and at a tile, a ragged non-causal tile, an
+    offset diagonal, odd and even counts of ring tiles."""
     q, k, v, do = _flash_case(dev, dtype, b, h, kvh, s, d, seed=2)
     kw = dict(scale=d ** -0.5, causal=causal, window=window, offset=offset)
     out, lse = fa.flash_fwd(q, k, v, **kw)
@@ -746,6 +767,42 @@ def test_flash_dq_kernel_matches_plain(dev, dtype, b, h, kvh, s, d, causal,
     f32 = [x.float() for x in (q, k, v, do)]
     _assert_within('dq', dq, fa.flash_bwd_plain(*f32, lse, delta, **kw)[0],
                    tol['dq'])
+
+
+@pytest.mark.parametrize('h,kvh,window', [(8, 1, None), (4, 4, 100)],
+                         ids=['g8', 'g1_window100'])
+def test_flash_d256_check_catches_a_dropped_column_half(dev, h, kvh, window):
+    """At d 256 two warps share each 16 kv rows of the dk/dv pass, each
+    with half of dk's and dv's columns.  The kernels hold their bounds;
+    and the same check fails a dk or dv whose second column half was
+    dropped (left at 0, as a warp that never wrote it), and a dq whose
+    last 32-column kv tile was left out."""
+    q, k, v, do = _flash_case(dev, torch.bfloat16, 1, h, kvh, 192, 256,
+                              seed=3)
+    kw = dict(scale=256 ** -0.5, causal=True, window=window)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    tol = fa.rounding_bounds(q, k, v, do, lse, delta, **kw)
+    f32 = [x.float() for x in (q, k, v, do)]
+    want = dict(zip(('dq', 'dk', 'dv'),
+                    fa.flash_bwd_plain(*f32, lse, delta, **kw)))
+    for name, got in (('dq', dq), ('dk', dk), ('dv', dv)):
+        _assert_within(name, got, want[name], tol[name])
+    for name, got in (('dk', dk), ('dv', dv)):
+        bad = got.clone()
+        bad[..., 128:] = 0.0
+        with pytest.raises(AssertionError, match='its bound'):
+            _assert_within(name, bad, want[name], tol[name])
+    # dq without the last 32 kv columns each query row sees.
+    keep = torch.ones(192, device=dev)
+    keep[160:] = 0.0
+    short = fa.flash_bwd_plain(q.float(), k.float() * keep[:, None],
+                               v.float(), do.float(), lse, delta, **kw)[0]
+    with pytest.raises(AssertionError, match='its bound'):
+        _assert_within('dq', short, want['dq'], tol['dq'])
 
 
 @pytest.mark.parametrize('h,kvh,s,window', [(8, 2, 192, None),
@@ -778,14 +835,12 @@ def test_flash_wrappers_raise_instead_of_falling_back(dev):
     q48, k48, v48, _ = _flash_case(dev, torch.bfloat16, 1, 4, 2, 64, 48)
     with pytest.raises(ValueError, match='head_dim'):
         fa.flash_fwd(q48, k48, v48, **kw)
-    q256, k256, v256, do256 = _flash_case(dev, torch.bfloat16, 1, 4, 2, 64,
-                                          256)
-    with pytest.raises(ValueError, match='Gemma training and the flash '
-                                         'kernels at head width 256'):
-        fa.flash_fwd(q256, k256, v256, **kw)
-    lse256 = torch.zeros(1, 4, 64, device=dev)
-    with pytest.raises(ValueError, match='head width 256'):
-        fa.flash_bwd_dq(q256, k256, v256, do256, lse256, lse256, **kw)
+    q96, k96, v96, do96 = _flash_case(dev, torch.bfloat16, 1, 4, 2, 64, 96)
+    lse96 = torch.zeros(1, 4, 64, device=dev)
+    with pytest.raises(ValueError, match=r'head_dim in \(64, 128, 256\)'):
+        fa.flash_bwd_dq(q96, k96, v96, do96, lse96, lse96, **kw)
+    with pytest.raises(ValueError, match='head_dim'):
+        fa.flash_bwd_dkv(q96, k96, v96, do96, lse96, lse96, **kw)
     with pytest.raises(ValueError, match='device'):
         fa.flash_fwd(q, k.cpu(), v, **kw)
     with pytest.raises(ValueError, match='contiguous'):

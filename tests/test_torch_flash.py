@@ -9,10 +9,11 @@ and kv blocks, with the causal/window block skipping in play.
 
 f32 throughout.  Tolerances, as the reference's own tests use them
 (tests/unit_tests/test_ops.py): 1e-5 absolute for the forward (out and
-lse: scores summed over d <= 32 terms and softmax sums over <= 256
-columns, both sides in f32) and 1e-4 for the backward (dq/dk/dv sum up
-to G * 256 products of O(1) terms in another order than the blockwise
-kernel).  The CUDA kernels themselves run only on the card
+lse: scores summed over d terms, scaled by d^-1/2, and softmax sums over
+<= 256 columns, both sides in f32) and 1e-4 for the backward (dq/dk/dv
+sum up to G * 256 products of O(1) terms in another order than the
+blockwise kernel).  The d 256 cases (gemma's head width, G 1 and G 8)
+hold the same tolerances.  The CUDA kernels themselves run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import jax.numpy as jnp
@@ -46,9 +47,14 @@ CASES = [
     (1, 4, 2, 256, 32, True, 100, 0),
     (1, 4, 2, 256, 16, True, None, 64),
     (1, 4, 2, 256, 16, True, 96, 32),
+    # Head width 256 (gemma): a group of 1 (gemma-7b's), a group of 8
+    # (gemma-2b's), and a window.
+    (1, 2, 2, 256, 256, True, None, 0),
+    (1, 8, 1, 256, 256, True, None, 0),
+    (1, 8, 1, 256, 256, True, 100, 0),
 ]
 IDS = ['mha', 'gqa2_b2_d32', 'mqa_noncausal', 'window', 'offset',
-       'window_offset']
+       'window_offset', 'd256_g1', 'd256_g8', 'd256_g8_window']
 
 
 def _inputs(seed, b, h, kvh, s, d):

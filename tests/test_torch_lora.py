@@ -15,7 +15,9 @@ delta is live.  Then the same tokens go through both:
   - three `Trainer` steps with `train_only='lora'`: loss 1e-5 relative,
     grad_norm 1e-4 relative, adapters 2e-6 absolute, and every base
     parameter bit for bit unchanged on both sides; once plain, once with
-    the recipe's `remat_policy='save_attn'` and `loss_chunk`;
+    the recipe's `remat_policy='save_attn'` and `loss_chunk`; the same
+    two for gemma-tiny at head width 256 with final_logit_softcap=30.0
+    (the tied head frozen with the base);
   - a step under 'save_attn' equals the 'nothing' step (the kernels'
     plain versions), and the flash forward runs once a layer under
     'save_attn' against twice under 'nothing'.
@@ -290,23 +292,36 @@ def _mesh1():
     return jmesh.make_mesh(jmesh.MeshConfig(), devices=jax.devices()[:1])
 
 
-def _train_config(cls, extra=None, **kw):
-    return cls(model='llama-tiny', global_batch_size=2, seq_len=SEQ,
+def _train_config(cls, extra=None, model='llama-tiny', **kw):
+    base = OV if model == 'llama-tiny' else GEMMA
+    return cls(model=model, global_batch_size=2, seq_len=SEQ,
                warmup_steps=2, total_steps=10, train_only='lora',
-               model_overrides=dict(OV, max_seq_len=SEQ, **(extra or {})),
+               model_overrides=dict(base, max_seq_len=SEQ, **(extra or {})),
                **kw)
 
 
-@pytest.mark.parametrize('extra,kw', [
-    ({}, {}),
-    ({'remat_policy': 'save_attn'}, {'loss_chunk': 8}),
-], ids=['lora', 'lora-save_attn-loss_chunk'])
-def test_train_only_lora_three_steps_match_jax(extra, kw):
-    jt = jtrainer.Trainer(_train_config(jtrainer.TrainConfig, extra, **kw),
-                          mesh=_mesh1())
+# gemma-tiny at head width 256 (2 heads over 1), softcapped.
+GEMMA = dict(head_dim=256, n_heads=2, n_kv_heads=1, dim=128, n_layers=2,
+             final_logit_softcap=30.0, dtype='float32', lora_rank=RANK)
+
+
+@pytest.mark.parametrize('extra,kw,model', [
+    ({}, {}, 'llama-tiny'),
+    ({'remat_policy': 'save_attn'}, {'loss_chunk': 8}, 'llama-tiny'),
+    ({}, {}, 'gemma-tiny'),
+    ({'remat_policy': 'save_attn'}, {'loss_chunk': 8}, 'gemma-tiny'),
+], ids=['lora', 'lora-save_attn-loss_chunk', 'gemma-d256-softcap-lora',
+        'gemma-d256-softcap-lora-save_attn-loss_chunk'])
+def test_train_only_lora_three_steps_match_jax(extra, kw, model):
+    # The reference's gemma config has no remat_policy: its blocks rerun
+    # whole ('nothing'), which moves what is kept, not the math.
+    jextra = {k: v for k, v in extra.items()
+              if model == 'llama-tiny' or k != 'remat_policy'}
+    jt = jtrainer.Trainer(_train_config(jtrainer.TrainConfig, jextra,
+                                        model, **kw), mesh=_mesh1())
     jt.init_state()
-    tt = ttrainer.Trainer(_train_config(ttrainer.TrainConfig, extra, **kw),
-                          device='cpu')
+    tt = ttrainer.Trainer(_train_config(ttrainer.TrainConfig, extra, model,
+                                        **kw), device='cpu')
     init = bridge.params_from_jax(_np(jt.state.params), tt.model_config)
     tt.init_state(init)
     trainable = set(tt.trainable_params())
